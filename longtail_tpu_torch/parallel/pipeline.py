@@ -1,0 +1,363 @@
+"""Batched device chunk+hash pipeline — port of
+``longtail_tpu/parallel/pipeline.py``.
+
+File parts are batched ``lanes`` at a time into one uint8 tensor and
+stream through three stages:
+
+- **Stage 1 (device)**: the scan and walk kernels (``parallel/stage1.py``)
+  resolve every part's chunk boundaries; only the walk output
+  ``(lanes, c_pad + 2)`` int32 comes back to the host.
+- **Stage 2 (host plan)**: chunks are grouped by power-of-two padded size
+  class, and a lane flagged ambiguous is re-chunked exactly on the host.
+- **Stage 3 (device)**: per class, the pack kernel copies the chunks'
+  bytes out of the resident batch into aligned word rows and the BLAKE3
+  kernel (``ops/blake3_kernel.py``) hashes them; the digests of all
+  classes come back in one copy.
+
+Host data reaches the card through pinned buffers with non-blocking
+copies on the current stream, and each stage's result comes back the same
+way, so the host waits only where the JAX package does its two fetches
+per batch (``plan_hash`` and ``retire``): stage 1 of later batches and
+stage 3 of earlier ones stay queued on the card while the host plans.
+
+With ``device="cpu"`` every wrapper computes its plain version, which is
+how the tests hold the port against the JAX package.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from typing import Iterable, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from longtail_tpu_torch import _kernels
+from longtail_tpu_torch.ops.blake3_kernel import hash_chunks_words_device
+from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+from longtail_tpu_torch.parallel.stage1 import (
+    Stage1Plan,
+    hash_table,
+    repair_lane,
+    stage1,
+    unpack_walk,
+)
+
+_LEAF = 1024
+
+PACK_SOURCE = "longtail_tpu_torch/csrc/pack.cu"
+PACK_REPLACES = "longtail_tpu/parallel/pipeline.py:166"
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device(device), refusing CUDA when no card is present: no
+    path continues on the CPU in place of the card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available (torch.cuda.is_available() is False)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# pack
+# ---------------------------------------------------------------------------
+
+def pack_plain(batch: torch.Tensor, starts: torch.Tensor,
+               sizes: torch.Tensor, padded: int) -> torch.Tensor:
+    """Plain pack: row r = bytes [starts[r], starts[r] + sizes[r]) of the
+    batch, zero past sizes[r], as (rows, padded/4) little-endian int32."""
+    off = torch.arange(padded, device=batch.device, dtype=torch.int64)
+    idx = (starts.to(torch.int64)[:, None] + off[None, :]).clamp_(
+        max=max(batch.numel() - 1, 0))
+    valid = off[None, :] < sizes.to(torch.int64)[:, None]
+    rows = torch.where(valid, batch[idx], torch.zeros((), dtype=torch.uint8,
+                                                      device=batch.device))
+    return rows.contiguous().view(torch.int32)
+
+
+def pack(batch: torch.Tensor, starts: torch.Tensor, sizes: torch.Tensor,
+         padded: int) -> torch.Tensor:
+    """Pack kernel wrapper; same contract as pack_plain."""
+    if padded % _LEAF:
+        raise ValueError(f"padded {padded} is not a multiple of {_LEAF}")
+    if batch.device.type == "cpu":
+        return pack_plain(batch, starts, sizes, padded)
+    rows = starts.numel()
+    _kernels.require("batch", batch, torch.uint8)
+    _kernels.require("starts", starts, torch.int32, (rows,), batch.device)
+    _kernels.require("sizes", sizes, torch.int32, (rows,), batch.device)
+    if batch.dim() != 1 or batch.numel() % 4 or batch.data_ptr() % 4:
+        raise ValueError("batch: a 1-D, word-aligned byte tensor is needed")
+    out = torch.empty((rows, padded // 4), dtype=torch.int32,
+                      device=batch.device)
+    if rows:
+        with torch.cuda.device(batch.device):
+            rc = _kernels.load().lt_pack(
+                batch.data_ptr(), batch.numel() // 4, starts.data_ptr(),
+                sizes.data_ptr(), out.data_ptr(), rows, padded // 4,
+                _kernels.stream_of(batch))
+        _kernels.check(rc, "lt_pack")
+        pack.LAUNCHES += 1
+    return out
+
+
+pack.LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# size classes (host plan)
+# ---------------------------------------------------------------------------
+
+def pow2_cap(padded_chunk: int) -> int:
+    """Largest size class: next power-of-two multiple of 1 KiB >=
+    padded_chunk (the BLAKE3 kernel needs a power-of-two leaf count)."""
+    leaves = -(-padded_chunk // _LEAF)
+    p = 1
+    while p < leaves:
+        p *= 2
+    return p * _LEAF
+
+
+def class_floor(cfg: ChunkerConfig) -> int:
+    """Smallest size class: the power-of-two >= 2 * min_size (capped);
+    smaller chunks pad up into it."""
+    f = _LEAF
+    target = min(2 * cfg.min_size, pow2_cap(cfg.padded_chunk))
+    while f < target:
+        f *= 2
+    return f
+
+
+def _pow2_padded(sizes: np.ndarray, cap: int, floor: int = _LEAF
+                 ) -> np.ndarray:
+    """Next power-of-two multiple of 1 KiB >= size, clamped to
+    [floor, cap]."""
+    leaves = np.maximum(-(-sizes // _LEAF), 1)
+    pow2 = np.uint64(1) << np.uint64(
+        np.ceil(np.log2(leaves)).astype(np.int64))
+    return np.clip(pow2.astype(np.int64) * _LEAF, floor, cap)
+
+
+def _prefetch(it: Iterable, depth: int) -> Iterator:
+    """Pull from `it` on a background thread so file I/O overlaps device
+    compute."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    _END = object()
+
+    def worker():
+        try:
+            for x in it:
+                q.put(x)
+            q.put(_END)
+        except BaseException as e:  # propagate into the consumer
+            q.put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        x = q.get()
+        if x is _END:
+            return
+        if isinstance(x, BaseException):
+            raise x
+        yield x
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+class DevicePartIndexer:
+    """Streams file parts through the device chunk+hash pipeline.
+
+    ``target_chunk_size`` fixes the chunking geometry and the part size
+    (``target_chunk_size * 1024``); ``batch_bytes`` sizes the lane batch.
+    ``device`` is where the data plane runs: a CUDA device runs the
+    kernels, ``"cpu"`` their plain versions.
+    """
+
+    def __init__(self, target_chunk_size: int, device,
+                 batch_bytes: int = 64 << 20, lanes: int | None = None):
+        self.device = resolve_device(device)
+        self.cfg = ChunkerConfig.from_target(target_chunk_size)
+        self.part_bytes = target_chunk_size * 1024
+        self.lanes = lanes or max(1, batch_bytes // self.part_bytes)
+        if self.device.type == "cpu" and lanes is None:
+            # the plain versions gain nothing from wide batches, and their
+            # int64 intermediates are 8x the batch
+            self.lanes = min(self.lanes, 8)
+        self.plan = Stage1Plan(self.cfg, self.lanes, self.part_bytes)
+        # in-flight batches per stage: deep enough that each stage's one
+        # host wait overlaps other batches' device work
+        self.queue_depth = 3
+        self._cap = pow2_cap(self.cfg.padded_chunk)
+        self._floor = class_floor(self.cfg)
+        self._table = hash_table(self.device)
+        self._pinned = self.device.type == "cuda"
+
+    # -- host <-> device staging --------------------------------------------
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self._pinned)
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """Async copy of a host tensor (pinned when on CUDA) to the device."""
+        return t.to(self.device, non_blocking=True) if self._pinned else t
+
+    def _fetch(self, t: torch.Tensor):
+        """Start the async copy of t to a pinned host buffer; returns
+        (host tensor, event to wait on, or None on the CPU)."""
+        if not self._pinned:
+            return t, None
+        host = self._host_buffer(t.shape, t.dtype)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return host, ev
+
+    # -- stage 1 ----------------------------------------------------------
+
+    def submit(self, tags, dev_rows: torch.Tensor, lengths: np.ndarray,
+               host_rows: np.ndarray | None = None):
+        """Stage 1 on a device-resident (lanes * part_bytes,) uint8 batch:
+        queue scan + walk and the async fetch of the walk output.
+        host_rows (the same bytes on the host) makes lane repair cheap."""
+        lens = self._host_buffer((self.lanes,), torch.int32)
+        lens.numpy()[:] = lengths
+        out = stage1(dev_rows, self._upload(lens), self._table, self.plan)
+        out_host, ev = self._fetch(out)
+        return (tags, dev_rows, lengths, out_host, ev, host_rows)
+
+    def submit_host(self, batch):
+        """Stage 1 from host parts: copy (tag, bytes) pairs into a pinned
+        batch buffer, upload it, queue stage 1."""
+        B, P = self.lanes, self.part_bytes
+        tags = [t for t, _ in batch]
+        buf = self._host_buffer((B * P,), torch.uint8)
+        flat = buf.numpy()
+        lengths = np.zeros((B,), dtype=np.int32)
+        for i, (_, part) in enumerate(batch):
+            part = np.asarray(part, dtype=np.uint8)
+            if len(part) > P:
+                raise ValueError(
+                    f"part of {len(part)} bytes > part_bytes {P}")
+            flat[i * P: i * P + len(part)] = part
+            flat[i * P + len(part): (i + 1) * P] = 0
+            lengths[i] = len(part)
+        flat[len(batch) * P:] = 0
+        return self.submit(tags, self._upload(buf), lengths, host_rows=flat)
+
+    # -- stage 2 + 3 ------------------------------------------------------
+
+    def plan_hash(self, entry):
+        """Stage 2: wait for the walk output, repair flagged lanes, group
+        chunks by size class; stage 3: queue pack + hash per class and
+        the async fetch of all digests."""
+        tags, dev_rows, lengths, out_host, ev, host_rows = entry
+        P = self.part_bytes
+        n_lanes = len(tags)
+        if ev is not None:
+            ev.synchronize()
+        sizes, counts, amb = unpack_walk(out_host.numpy(), self.plan)
+        for b in range(n_lanes):
+            if amb[b]:
+                if host_rows is not None:
+                    lane = host_rows[b * P: b * P + lengths[b]]
+                else:
+                    lane = dev_rows[b * P: b * P + lengths[b]].cpu().numpy()
+                fixed = repair_lane(lane, self.cfg)
+                counts[b] = len(fixed)
+                sizes[b, : len(fixed)] = fixed
+                sizes[b, len(fixed):] = 0
+
+        lane_sizes = []
+        all_starts, all_sizes = [], []
+        for b in range(n_lanes):
+            sz = sizes[b, : counts[b]].astype(np.int64)
+            lane_sizes.append(sz.astype(np.uint32))
+            st = np.zeros(len(sz), dtype=np.int64)
+            np.cumsum(sz[:-1], out=st[1:])
+            all_starts.append(st + b * P)
+            all_sizes.append(sz)
+        flat_starts = np.concatenate(all_starts) if all_starts \
+            else np.zeros(0, np.int64)
+        flat_sizes = np.concatenate(all_sizes) if all_sizes \
+            else np.zeros(0, np.int64)
+        padded = _pow2_padded(flat_sizes, self._cap, self._floor)
+
+        # one upload: each class's starts then sizes
+        classes = [(int(c), np.flatnonzero(padded == c))
+                   for c in np.unique(padded)]
+        blob = self._host_buffer((2 * len(flat_sizes),), torch.int32)
+        bnp = blob.numpy()
+        o = 0
+        for _, idx in classes:
+            r = len(idx)
+            bnp[o:o + r] = flat_starts[idx]
+            bnp[o + r:o + 2 * r] = flat_sizes[idx]
+            o += 2 * r
+        blob = self._upload(blob)
+        res = []
+        o = 0
+        for cls, idx in classes:
+            r = len(idx)
+            st, sz = blob[o:o + r], blob[o + r:o + 2 * r]
+            o += 2 * r
+            lo, hi = hash_chunks_words_device(pack(dev_rows, st, sz, cls), sz)
+            res.append(torch.stack([lo, hi]))
+        res = torch.cat(res, dim=1) if res else torch.zeros(
+            (2, 0), dtype=torch.int32, device=self.device)
+        order = np.concatenate([idx for _, idx in classes]) if classes \
+            else np.zeros(0, np.int64)
+        res_host, ev = self._fetch(res)
+        return (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
+
+    def retire(self, entry):
+        """Stage 3 drain: wait for the digests and yield
+        (tag, sizes u32, hashes u64) per part in submission order."""
+        tags, lane_sizes, counts, res_host, ev, order = entry
+        if ev is not None:
+            ev.synchronize()
+        res = res_host.numpy().view(np.uint32).astype(np.uint64)
+        hashes = np.empty(int(counts.sum()), dtype=np.uint64)
+        hashes[order] = res[0] | (res[1] << np.uint64(32))
+        off = 0
+        for tag, sz, cnt in zip(tags, lane_sizes, counts):
+            yield tag, sz, hashes[off: off + int(cnt)]
+            off += int(cnt)
+
+    # -- streaming driver -------------------------------------------------
+
+    def index_stream(self, tagged_parts: Iterable[Tuple[object, np.ndarray]],
+                     prefetch_depth: int | None = None,
+                     ) -> Iterator[Tuple[object, np.ndarray, np.ndarray]]:
+        """Consume (tag, part_bytes) pairs; yield (tag, sizes u32, hashes u64)
+        per part in submission order. Parts must be <= part_bytes long."""
+        B = self.lanes
+        depth = prefetch_depth if prefetch_depth is not None else 2 * B
+        src = _prefetch(tagged_parts, depth) if depth else iter(tagged_parts)
+
+        stage1q: deque = deque()
+        stage2q: deque = deque()
+        batch: list = []
+        d = self.queue_depth
+        for item in src:
+            batch.append(item)
+            if len(batch) == B:
+                stage1q.append(self.submit_host(batch))
+                batch = []
+                if len(stage1q) >= d:
+                    stage2q.append(self.plan_hash(stage1q.popleft()))
+                if len(stage2q) >= d:
+                    yield from self.retire(stage2q.popleft())
+        if batch:
+            stage1q.append(self.submit_host(batch))
+        while stage1q:
+            stage2q.append(self.plan_hash(stage1q.popleft()))
+        while stage2q:
+            yield from self.retire(stage2q.popleft())

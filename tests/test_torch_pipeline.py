@@ -1,0 +1,248 @@
+"""The port's pipeline and slice (pack, size classes, DevicePartIndexer,
+create_version_index, upsync, CLI) on the CPU path, held against the
+JAX package; plus the port's import and device rules."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from longtail_tpu import api as japi  # noqa: E402
+from longtail_tpu.core.indexing import (  # noqa: E402
+    create_version_index as j_create_version_index,
+)
+from longtail_tpu.formats.version_index import VersionIndex  # noqa: E402
+from longtail_tpu.ops import blake3 as jblake3, cdc  # noqa: E402
+from longtail_tpu.parallel import pipeline as jpipeline  # noqa: E402
+from longtail_tpu.parallel.device_chunker import (  # noqa: E402
+    ChunkerConfig as JChunkerConfig,
+)
+from longtail_tpu.stores.compressblockstore import (  # noqa: E402
+    CompressBlockStore,
+)
+from longtail_tpu.stores.fsblockstore import FSBlockStore  # noqa: E402
+from longtail_tpu.stores.storage import (  # noqa: E402
+    FSStorage,
+    MemStorage,
+    ensure_parent_dirs,
+)
+from longtail_tpu_torch import _kernels, api, cli  # noqa: E402
+from longtail_tpu_torch.core.indexing import (  # noqa: E402
+    create_version_index,
+)
+from longtail_tpu_torch.parallel import pipeline  # noqa: E402
+from longtail_tpu_torch.parallel.device_chunker import (  # noqa: E402
+    ChunkerConfig,
+)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TARGET = 1024
+# tests/test_pipeline.py's mixed tree: multi-part, exact part, tiny, empty
+SPEC = [
+    ("big.bin", TARGET * 1024 * 2 + 777),
+    ("exact_part.bin", TARGET * 1024),
+    ("small.txt", 300),
+    ("tiny", 1),
+    ("empty", 0),
+    ("sub/dir/nested.dat", TARGET * 512 + 5),
+]
+
+
+def _write_tree(storage, root, seed=11):
+    rng = np.random.default_rng(seed)
+    storage.create_dir(root)
+    for path, size in SPEC:
+        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        ensure_parent_dirs(storage, f"{root}/{path}")
+        storage.write(f"{root}/{path}", data)
+
+
+def test_pack_plain_matches_pallas_pack_interpret():
+    """tests/test_tpu_branch.py's unaligned starts: the plain pack equals
+    the Pallas pack kernel in interpret mode, row for row."""
+    padded, rows = 2048, 8
+    n_bytes = 64 << 10
+    rng = np.random.default_rng(23)
+    data = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    slack = padded // 4 + 2048
+    words2d = jpipeline.make_pad_words_fn(slack)(
+        jax.device_put(data.reshape(-1, 128)))
+    starts = np.array([0, 1, 3, 4095, 4096, 4097, 60000, 61337], np.int32)
+    sizes = np.array([2048, 2047, 1, 2048, 512, 1025, 2048, 1000], np.int32)
+    want = np.asarray(jpipeline.make_pack_fn(padded, rows)(
+        words2d, jax.device_put(starts), jax.device_put(sizes)))
+    got = pipeline.pack(torch.from_numpy(data), torch.from_numpy(starts),
+                        torch.from_numpy(sizes), padded)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert pipeline.pack.LAUNCHES == 0
+
+
+def test_pack_plain_zero_rows_and_batch_end():
+    data = torch.arange(4096, dtype=torch.int64).to(torch.uint8)
+    starts = torch.tensor([4090, 0, 7], dtype=torch.int32)
+    sizes = torch.tensor([6, 0, 3], dtype=torch.int32)
+    got = pipeline.pack_plain(data, starts, sizes, 1024).numpy()
+    b = got.view(np.uint8).reshape(3, 1024)
+    np.testing.assert_array_equal(b[0, :6], np.arange(4090, 4096) % 256)
+    assert not b[0, 6:].any() and not b[1].any()
+    np.testing.assert_array_equal(b[2, :3], [7, 8, 9])
+
+
+@pytest.mark.parametrize("target", [1024, 3072, 24576, 32768])
+def test_size_classes_match_jax(target):
+    cfg, jcfg = ChunkerConfig.from_target(target), \
+        JChunkerConfig.from_target(target)
+    cap = pipeline.pow2_cap(cfg.padded_chunk)
+    floor = pipeline.class_floor(cfg)
+    assert cap == jpipeline.pow2_cap(jcfg.padded_chunk)
+    assert floor == jpipeline.class_floor(jcfg)
+    sizes = np.unique(np.concatenate([
+        np.arange(1, min(cfg.max_size, 4096) + 1),
+        np.linspace(1, cfg.max_size, 997).astype(np.int64)]))
+    np.testing.assert_array_equal(
+        pipeline._pow2_padded(sizes, cap, floor),
+        jpipeline._pow2_padded(sizes, cap, floor))
+
+
+def test_index_stream_matches_host_oracle():
+    """Multi-part stream through DevicePartIndexer(device="cpu"): sizes
+    and hashes per part equal the host chunker + BLAKE3 oracle, in
+    submission order (tests/test_pipeline.py's parts, 3 lanes)."""
+    rng = np.random.default_rng(3)
+    indexer = pipeline.DevicePartIndexer(TARGET, "cpu", lanes=3)
+    cfg = indexer.cfg
+    P = indexer.part_bytes
+    parts = [(i, rng.integers(0, 256, size=n, dtype=np.uint8))
+             for i, n in enumerate([P, P // 2 + 13, 1, 700, P - 1,
+                                    cfg.max_size, cfg.min_size, P // 3])]
+    got = list(indexer.index_stream(iter(parts)))
+    assert [t for t, _, _ in got] == [t for t, _ in parts]
+    for (_, sizes, hashes), (_, data) in zip(got, parts):
+        ends = cdc.chunk_part(data, cfg.min_size, cfg.avg_size, cfg.max_size)
+        np.testing.assert_array_equal(
+            sizes.astype(np.int64), np.diff(np.concatenate([[0], ends])))
+        starts = np.concatenate([[0], ends[:-1]])
+        want = jblake3.hash64_ranges(data, starts, ends - starts)
+        if want is None:        # no native library: the scalar oracle
+            want = np.array([jblake3.hash64(data[s:e].tobytes())
+                             for s, e in zip(starts, ends)], np.uint64)
+        np.testing.assert_array_equal(hashes, want)
+
+
+def test_version_index_bit_identical_to_jax_host_and_device():
+    """create_version_index(device="cpu") == the JAX package's
+    create_version_index with xp=np and with xp=jnp, byte for byte."""
+    import jax.numpy as jnp
+
+    st = MemStorage()
+    _write_tree(st, "src")
+    got = create_version_index(st, "src", target_chunk_size=TARGET,
+                               device="cpu").to_bytes()
+    assert got == j_create_version_index(
+        st, "src", target_chunk_size=TARGET, xp=np).to_bytes()
+    assert got == j_create_version_index(
+        st, "src", target_chunk_size=TARGET, xp=jnp).to_bytes()
+
+
+def test_upsync_then_host_downsync_reproduces_tree(tmp_path):
+    fs = FSStorage()
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    _write_tree(fs, src, seed=5)
+    store = CompressBlockStore(FSBlockStore(fs, str(tmp_path / "store")))
+    vi, vsi = api.upsync(fs, src, store, target_chunk_size=TARGET,
+                         device="cpu")
+    assert vsi.block_count > 0
+    japi.downsync(CompressBlockStore(FSBlockStore(fs, str(tmp_path /
+                                                          "store"))),
+                  fs, out, vi, min_block_usage_percent=0)
+    for path, size in SPEC:
+        a = open(os.path.join(src, path), "rb").read()
+        b = open(os.path.join(out, path), "rb").read()
+        assert len(a) == size and a == b, path
+
+
+def test_cli_upsync_host_path_writes_the_hosts_index(tmp_path):
+    fs = FSStorage()
+    src = str(tmp_path / "src")
+    _write_tree(fs, src, seed=6)
+    lvi = str(tmp_path / "v.lvi")
+    rc = cli.main(["upsync", "--storage-uri", str(tmp_path / "store"),
+                   "--source-path", src, "--target-path", lvi,
+                   "--target-chunk-size", str(TARGET),
+                   "--compression-algorithm", "lz4"])
+    assert rc == 0
+    want = j_create_version_index(fs, src, target_chunk_size=TARGET, xp=np,
+                                  asset_tags=None)
+    got = VersionIndex.from_bytes(open(lvi, "rb").read())
+    np.testing.assert_array_equal(got.chunk_hashes, want.chunk_hashes)
+    np.testing.assert_array_equal(got.asset_sizes, want.asset_sizes)
+
+
+@pytest.mark.parametrize("argv,exc", [
+    (["pack", "--source-path", "a", "--target-path", "b.la", "--device"],
+     NotImplementedError),
+    (["upsync", "--storage-uri", "s", "--source-path", "a",
+      "--target-path", "b.lvi", "--device", "--hash-algorithm", "blake2"],
+     NotImplementedError),
+    (["upsync", "--storage-uri", "s", "--source-path", "a",
+      "--target-path", "b.lvi", "--device"], RuntimeError),
+])
+def test_cli_device_outside_the_port_raises(tmp_path, monkeypatch, argv, exc):
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("a")
+    with pytest.raises(exc):
+        cli.main(argv)
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    assert not torch.cuda.is_available()
+    fs = FSStorage()
+    store = FSBlockStore(fs, str(tmp_path / "store"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.upsync(fs, str(tmp_path), store, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.DevicePartIndexer(TARGET, "cuda")
+
+
+def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_kernels, "LIB_PATH", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(_kernels, "_LIB", None)
+    monkeypatch.setattr(_kernels.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.load()
+
+
+def test_require_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _kernels.require("x", torch.zeros(4, dtype=torch.int32), torch.int32)
+
+
+def test_import_leaves_jax_out():
+    """tests/conftest.py imports jax in this process, so check in a fresh
+    interpreter."""
+    code = ("import sys; import longtail_tpu_torch, longtail_tpu_torch.api, "
+            "longtail_tpu_torch.cli; assert 'jax' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.startswith('jax'))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+def test_no_jax_import_in_the_port():
+    pkg = os.path.join(REPO, "longtail_tpu_torch")
+    hits = []
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                for n, line in enumerate(open(os.path.join(d, f)), 1):
+                    s = line.strip()
+                    if s.startswith(("import jax", "from jax")):
+                        hits.append(f"{f}:{n}")
+    assert not hits, hits

@@ -1,0 +1,179 @@
+"""The port's stage 1 (scan + suffix-min + walk, plain PyTorch versions)
+held against the JAX package: its Pallas kernels in interpret mode, its
+XLA formulation and the reference chunker's golden vectors."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from longtail_tpu.ops import cdc  # noqa: E402
+from longtail_tpu.parallel import stage1 as jstage1  # noqa: E402
+from longtail_tpu.parallel.device_chunker import (  # noqa: E402
+    ChunkerConfig as JChunkerConfig,
+)
+from longtail_tpu_torch.parallel import stage1  # noqa: E402
+from longtail_tpu_torch.parallel.device_chunker import (  # noqa: E402
+    ChunkerConfig,
+)
+
+torch.set_num_threads(1)
+
+TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")
+GOLDEN_SIZES = [  # tests/test_chunker.py GOLDEN (test/test.cpp:3421-3443)
+    81590, 46796, 36543, 83172, 76749, 79550, 41484, 20326, 31652, 19995,
+    103873, 38087, 38377, 23449, 47321, 86692, 28268, 65465, 33255, 65932]
+
+
+def _tiny():
+    """tests/test_tpu_branch.py's tiny geometry and ragged lanes."""
+    plan = stage1.Stage1Plan(ChunkerConfig.from_target(1024), lanes=8,
+                             part_bytes=16384)
+    jplan = jstage1.Stage1Plan(JChunkerConfig.from_target(1024), lanes=8,
+                               part_bytes=16384)
+    B, P = plan.lanes, plan.part_bytes
+    rng = np.random.default_rng(17)
+    rows = rng.integers(0, 256, (B * P // 128, 128), dtype=np.uint8)
+    lengths = np.array(
+        [P, P - 137, P // 2, plan.cfg.min_size, 1, 700, P, P - 1],
+        dtype=np.int32)
+    flat = rows.reshape(-1)
+    for b, ln in enumerate(lengths):
+        flat[b * P + ln: (b + 1) * P] = 0
+    return plan, jplan, rows, lengths
+
+
+def _port_walk(flat, lengths, plan):
+    out = stage1.stage1(torch.from_numpy(flat), torch.from_numpy(lengths),
+                        stage1.hash_table("cpu"), plan)
+    return stage1.unpack_walk(out.numpy(), plan)
+
+
+def _repaired(flat, lengths, plan, sizes, n, amb):
+    """Per-lane exact chunk sizes: ambiguous lanes go through repair_lane."""
+    P = plan.part_bytes
+    out = []
+    for b in range(plan.lanes):
+        if amb[b]:
+            out.append(stage1.repair_lane(
+                flat[b * P: b * P + lengths[b]], plan.cfg))
+        else:
+            out.append(sizes[b, : n[b]])
+    return out
+
+
+@pytest.mark.parametrize("target", [1024, 4096, 32768, 131072])
+def test_geometry_matches_jax(target):
+    cfg, jcfg = ChunkerConfig.from_target(target), \
+        JChunkerConfig.from_target(target)
+    assert (cfg.min_size, cfg.avg_size, cfg.max_size) == \
+        (jcfg.min_size, jcfg.avg_size, jcfg.max_size)
+    assert cfg.discriminator == jcfg.discriminator
+    assert cfg.padded_chunk == jcfg.padded_chunk
+    P = target * 1024
+    plan = stage1.Stage1Plan(cfg, 2, P)
+    jplan = jstage1.Stage1Plan(jcfg, 2, P)
+    assert (plan.z, plan.c_pad) == (jplan.z, jplan.c_pad)
+    assert stage1.segment_bytes(cfg) == jstage1.segment_bytes(jcfg)
+
+
+def test_scan_summaries_match_pallas_scan_kernel():
+    """min1 / min2 / cnt per segment equal the Pallas scan kernel's
+    (interpret mode) on the tiny geometry."""
+    import jax.numpy as jnp
+
+    plan, jplan, rows, lengths = _tiny()
+    B, P = plan.lanes, plan.part_bytes
+    kernel = jstage1._make_scan_kernel(
+        jplan.cfg, P, jplan.tile_bytes, jplan.z, with_words=True)(B * P)
+    tlo = jnp.asarray(cdc.HASH_TABLE[:128][None, :])
+    thi = jnp.asarray(cdc.HASH_TABLE[128:][None, :])
+    want = jax.jit(lambda r, ln: kernel(ln, r, r, tlo, thi))(rows, lengths)
+    got = stage1.scan(torch.from_numpy(rows.reshape(-1)),
+                      torch.from_numpy(lengths), stage1.hash_table("cpu"),
+                      plan)
+    for g, w in zip(got, want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).reshape(-1))
+
+
+def test_stage1_matches_pallas_interpret_and_xla():
+    """(sizes, n, ambiguous) per lane equal the Pallas scan+walk
+    kernels' (interpret mode) exactly, flags included; after repair every
+    lane equals the exact XLA formulation."""
+    plan, jplan, rows, lengths = _tiny()
+    flat = rows.reshape(-1)
+    sizes, n, amb = _port_walk(flat, lengths, plan)
+
+    sz_p, n_p, amb_p = jstage1.unpack_stage1(
+        np.asarray(jstage1._make_stage1_pallas(jplan)(rows, lengths)[0]),
+        jplan)
+    np.testing.assert_array_equal(amb, amb_p)
+    np.testing.assert_array_equal(n, n_p)
+    np.testing.assert_array_equal(sizes, sz_p)
+
+    sz_x, n_x, _ = jstage1.unpack_stage1(
+        np.asarray(jstage1._make_stage1_xla(jplan)(rows, lengths)[0]),
+        jplan)
+    for b, got in enumerate(_repaired(flat, lengths, plan, sizes, n, amb)):
+        np.testing.assert_array_equal(got, sz_x[b, : n_x[b]])
+
+
+def test_golden_vectors():
+    """chunker.input through Stage1Plan(target 131072, 1 lane, 1 MiB):
+    Z = 2048, c_pad = 128, and the reference's golden chunk sizes."""
+    data = np.fromfile(os.path.join(TESTDATA, "chunker.input"),
+                       dtype=np.uint8)
+    plan = stage1.Stage1Plan(ChunkerConfig.from_target(131072), lanes=1,
+                             part_bytes=1 << 20)
+    assert (plan.z, plan.c_pad) == (2048, 128)
+    flat = np.zeros(plan.part_bytes, np.uint8)
+    flat[: len(data)] = data
+    lengths = np.array([len(data)], np.int32)
+    sizes, n, amb = _port_walk(flat, lengths, plan)
+    got = _repaired(flat, lengths, plan, sizes, n, amb)[0]
+    assert got.tolist() == GOLDEN_SIZES
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stage1_matches_host_chunker(seed):
+    """Structured lanes (noise, zero runs, short periods) at the default
+    geometry's segment size (Z = 512) against the host chunker."""
+    cfg = ChunkerConfig.from_target(32768)
+    plan = stage1.Stage1Plan(cfg, lanes=3, part_bytes=1 << 18)
+    B, P = plan.lanes, plan.part_bytes
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, 256, B * P, dtype=np.uint8)
+    flat[P // 3: P // 3 + 70000] = 0
+    flat[P + 5000: P + 5000 + 90000] = np.resize(flat[:4352], 90000)
+    lengths = np.array(
+        [P, P - 4097 * (seed + 1), 65 * (seed + 1) + cfg.max_size], np.int32)
+    for b, ln in enumerate(lengths):
+        flat[b * P + ln: (b + 1) * P] = 0
+    sizes, n, amb = _port_walk(flat, lengths, plan)
+    for b, got in enumerate(_repaired(flat, lengths, plan, sizes, n, amb)):
+        part = flat[b * P: b * P + lengths[b]]
+        ends = cdc.chunk_part(part, cfg.min_size, cfg.avg_size, cfg.max_size)
+        np.testing.assert_array_equal(got,
+                                      np.diff(np.concatenate([[0], ends])))
+
+
+def test_suffix_min_is_exclusive_per_part():
+    cfg = ChunkerConfig.from_target(1024)
+    plan = stage1.Stage1Plan(cfg, lanes=2, part_bytes=4096)
+    Sp = plan.segments_per_part
+    rng = np.random.default_rng(3)
+    m1 = rng.integers(0, 10**6, 2 * Sp).astype(np.int32)
+    suf = stage1.suffix_min(torch.from_numpy(m1), plan).numpy()
+    for b in range(2):
+        seg = m1[b * Sp:(b + 1) * Sp]
+        want = [seg[s + 1:].min() if s + 1 < Sp else stage1.BIG
+                for s in range(Sp)]
+        np.testing.assert_array_equal(suf[b * Sp:(b + 1) * Sp], want)
+
+
+def test_plan_rejects_unaligned_parts():
+    with pytest.raises(ValueError):
+        stage1.Stage1Plan(ChunkerConfig.from_target(1024), 1, 1000)
