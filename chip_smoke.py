@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (longtail_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--gib 1.0] [--seed 7]
+    python3 chip_smoke.py [--gib 1.0] [--blake2-gib 0.03125] [--seed 7]
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
 1. device: requires CUDA; prints nvidia-smi's name and power limit;
-2. build: compiles the kernels (csrc/*.cu, nvcc, sm_90a);
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (one 64 MiB batch of 2 x 32 MiB parts, one
-   ragged; pack and BLAKE3 on every size class of that batch's chunks
-   plus a size-0 padding tail), demanding exact equality (all integer),
-   with CUDA-event times of both;
-4. main path: api.upsync(device=cuda) of a synthetic asset tree (--gib
-   GiB, default 1) into an FSBlockStore behind a CompressBlockStore at
-   the library defaults (32 KiB target chunk, 64 MiB batches, 8 MiB
-   blocks, LZ4); prints wall time, GB/s and each kernel's launch count;
-5. held to the host: the .lvi must equal the host path's byte for byte,
-   and a host downsync of the store must reproduce the tree byte for byte.
+2. build: compiles the kernels (csrc/*.cu, one nvcc per source, sm_90a);
+3. kernels: each of the six kernels against its plain PyTorch version on
+   the card at the main path's shapes, demanding exact equality (all
+   integer), with CUDA-event times of both and the kernel's own device
+   time under torch.profiler: scan (bins output included)
+   and walk on one 64 MiB batch of 2 x 32 MiB parts, one ragged; pack,
+   BLAKE3 and BLAKE2 on every size class of that batch's chunks plus a
+   size-0 padding tail; the Huffman pack on the four streams of a
+   128 KiB zstd block of the structured data, a short single-stream
+   section and a skewed distribution;
+4. main path: the CLI's ``upsync --device`` of a synthetic asset tree
+   (--gib GiB, default 1) at the defaults (32 KiB target chunk, 64 MiB
+   batches, 8 MiB blocks), with zstd (the default) and with LZ4, and of
+   a smaller tree (--blake2-gib, default 32 MiB: the host BLAKE2 index
+   it is held to is the host package's numpy lane code, ~1 MB/s) with
+   BLAKE2 (zstd blocks); each kernel's launch count is set to 0 before
+   and read after each run and must be positive for every kernel of
+   that path; prints wall time, GB/s, compression ratio and the blocks
+   of each route;
+5. held to the host: each .lvi equals the host path's byte for byte, a
+   host downsync of each store reproduces the tree, sampled 8 MiB blocks
+   recompressed with the port's codecs on the CPU equal the card's
+   bytes, and the ratios stand beside host zstd level 3 and host LZ4;
+6. stage 4: DevicePartIndexer(compress=True) over a few batches, anchors
+   from the scan's bins equal to those from the words, every block
+   assembled by the host LZ4 walk and decoded; scan, walk, pack and
+   BLAKE3 each launched in the compress=True batches; prints GB/s.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax.
@@ -93,11 +108,13 @@ def make_tree(root: str, total: int, seed: int) -> int:
     return written
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of fn() over reps runs, after one warm-up."""
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean CUDA-event time of fn() over reps runs, after one warm-up
+    (warmup=False for a plain version that takes seconds)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     start.record()
@@ -108,12 +125,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    `kernel`, under torch.profiler over reps calls of fn() (one launch
+    each) after one warm-up: the kernel's own time, without the wrapper's
+    host submission, which back-to-back CUDA events also see when the
+    kernel is shorter than it.  The mean is over the launches the
+    profiler recorded, which may be fewer than reps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    seen = sum(e.count for e in hits)
+    if not seen:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return sum(e.device_time_total for e in hits) / 1e3 / seen
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over paired int tensors (0 when equal)."""
     import torch
 
     err = 0
-    for g, w in zip(got, want):
+    for g, w in zip(got, want, strict=True):
         if g.shape != w.shape:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
@@ -122,11 +162,57 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def hufpack_cases(rng, dev):
+    """The pack's inputs at the main path's shapes: the four streams of
+    the 128 KiB zstd block with the most literals in an 8 MiB block of
+    the structured data (n_pad 32768), one short single-stream section,
+    and a skewed distribution (1-bit and 11-bit codes)."""
+    import torch
+
+    from longtail_tpu_torch import _host
+    from longtail_tpu_torch.ops import device_entropy
+    from longtail_tpu_torch.parallel.device_match import fast_block_anchors
+
+    src = structured(rng, 8 << 20).tobytes()
+    words = torch.from_numpy(np.frombuffer(src, np.int32).copy()).to(dev)
+    (apos, aref), = fast_block_anchors(
+        words, len(src) // 4, max_offset_words=len(src) // 4,
+        suppress_sampled_chains=False)
+    seqs = _host.sequences_from_anchors(src, apos, aref)
+    sections = [lits for _, _, lits in
+                device_entropy.literal_sections(src, seqs)]
+    big = np.frombuffer(max(sections, key=len), np.uint8)
+    skew = rng.choice(np.arange(256), size=16384,
+                      p=np.r_[[0.75], np.full(255, 0.25 / 255)]
+                      ).astype(np.uint8)
+    cases = []
+    for name, arr in (("128 KiB block", big), ("short section", big[:700]),
+                      ("skewed", skew)):
+        _, cv, cl = _host.build_huffman(
+            np.bincount(arr, minlength=256).tolist())
+        n = len(arr)
+        if n > 1023:
+            seg = (n + 3) // 4
+            parts = [arr[i * seg:(i + 1) * seg] for i in range(4)]
+        else:
+            parts = [arr]
+        ins = device_entropy.stream_inputs(parts, cv, cl)
+        cases.append((name, max(cl),
+                      [torch.from_numpy(a).to(dev) for a in ins]))
+    return cases
+
+
 def check_kernels(seed: int) -> list:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
 
-    from longtail_tpu_torch.ops import blake3, blake3_kernel
+    from longtail_tpu_torch.ops import (
+        blake2,
+        blake2_kernel,
+        blake3,
+        blake3_kernel,
+        entropy_kernel,
+    )
     from longtail_tpu_torch.parallel import pipeline, stage1
     from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 
@@ -143,22 +229,31 @@ def check_kernels(seed: int) -> list:
     table = stage1.hash_table(dev)
     rows = []
 
-    def row(name, src, rep, err, ms, plain_ms):
-        log(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms "
+    def row(name, src, rep, err, ms, plain_ms, dev_ms):
+        log(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms by CUDA events "
+            f"around the wrapper, {dev_ms:.4f} ms of device time "
             f"(plain PyTorch {plain_ms:.4f} ms)")
         if err != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err {err})")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, "device_ms": dev_ms})
 
-    got = stage1.scan(batch, lens, table, plan)
-    want = stage1.scan_plain(batch, lens, table, plan)
+    # scan, with the bins output compared too; timed as the upsync path
+    # runs it (no bins), the bins variant logged beside it
+    got = stage1.scan(batch, lens, table, plan, with_bins=True)
+    want = stage1.scan_plain(batch, lens, table, plan, with_bins=True)
+    bins_ms = cuda_ms(lambda: stage1.scan(batch, lens, table, plan,
+                                          with_bins=True), 20)
+    log(f"scan with bins: {bins_ms:.4f} ms, {got[3].numel()} bins")
     row("scan", stage1.SOURCE, stage1.SCAN_REPLACES,
         max_abs_err(got, want),
         cuda_ms(lambda: stage1.scan(batch, lens, table, plan), 20),
-        cuda_ms(lambda: stage1.scan_plain(batch, lens, table, plan), 2))
+        cuda_ms(lambda: stage1.scan_plain(batch, lens, table, plan), 2),
+        device_ms(lambda: stage1.scan(batch, lens, table, plan), 20,
+                  "scan_kernel"))
+    got = got[:3]
 
     suf = stage1.suffix_min(got[0], plan)
     wout = stage1.walk(lens, *got, suf, plan)
@@ -166,7 +261,9 @@ def check_kernels(seed: int) -> list:
     row("walk", stage1.SOURCE, stage1.WALK_REPLACES,
         max_abs_err([wout], [wplain]),
         cuda_ms(lambda: stage1.walk(lens, *got, suf, plan), 5),
-        cuda_ms(lambda: stage1.walk_plain(lens, *got, suf, plan), 1))
+        cuda_ms(lambda: stage1.walk_plain(lens, *got, suf, plan), 1),
+        device_ms(lambda: stage1.walk(lens, *got, suf, plan), 5,
+                  "walk_kernel"))
 
     sizes, n, amb = stage1.unpack_walk(wout.cpu().numpy(), plan)
     log(f"batch: {n.tolist()} chunks per part, ambiguous {amb.tolist()}")
@@ -178,8 +275,9 @@ def check_kernels(seed: int) -> list:
     st_all, sz_all = np.concatenate(all_st), np.concatenate(all_sz)
     cap, floor = pipeline.pow2_cap(cfg.padded_chunk), pipeline.class_floor(cfg)
     padded = pipeline._pow2_padded(sz_all, cap, floor)
-    pack_err = hash_err = 0
-    t = {"pack": 0.0, "pack_plain": 0.0, "hash": 0.0, "hash_plain": 0.0}
+    err = {"pack": 0, "blake3": 0, "blake2": 0}
+    t = {k + s: 0.0 for k in ("pack", "blake3", "blake2")
+         for s in ("", "_plain", "_device")}
     for cls in np.unique(padded):
         idx = np.flatnonzero(padded == cls)
         tail = np.zeros(5, np.int64)                 # size-0 padding rows
@@ -189,23 +287,49 @@ def check_kernels(seed: int) -> list:
                               .astype(np.int32)).to(dev)
         cls = int(cls)
         words = pipeline.pack(batch, st, sz, cls)
-        pack_err = max(pack_err, max_abs_err(
+        err["pack"] = max(err["pack"], max_abs_err(
             [words], [pipeline.pack_plain(batch, st, sz, cls)]))
         t["pack"] += cuda_ms(lambda: pipeline.pack(batch, st, sz, cls), 10)
         t["pack_plain"] += cuda_ms(
             lambda: pipeline.pack_plain(batch, st, sz, cls), 2)
-        hash_err = max(hash_err, max_abs_err(
-            blake3_kernel.hash_chunks_words_device(words, sz),
-            blake3.hash_chunks_words(words, sz)))
-        t["hash"] += cuda_ms(
-            lambda: blake3_kernel.hash_chunks_words_device(words, sz), 10)
-        t["hash_plain"] += cuda_ms(
-            lambda: blake3.hash_chunks_words(words, sz), 1)
+        t["pack_device"] += device_ms(
+            lambda: pipeline.pack(batch, st, sz, cls), 10, "pack_kernel")
+        for name, dev_fn, plain_fn in (
+                ("blake3", blake3_kernel.hash_chunks_words_device,
+                 blake3.hash_chunks_words),
+                ("blake2", blake2_kernel.hash_chunks_words_device,
+                 blake2.hash_chunks_words)):
+            err[name] = max(err[name], max_abs_err(
+                dev_fn(words, sz), plain_fn(words, sz)))
+            t[name] += cuda_ms(lambda: dev_fn(words, sz), 10)
+            t[name + "_plain"] += cuda_ms(lambda: plain_fn(words, sz), 1,
+                                          warmup=False)
+            t[name + "_device"] += device_ms(lambda: dev_fn(words, sz), 10,
+                                             f"{name}_kernel")
         log(f"class {cls >> 10} KiB: {len(idx)} chunks + 5 padding rows")
-    row("pack", pipeline.PACK_SOURCE, pipeline.PACK_REPLACES, pack_err,
-        t["pack"], t["pack_plain"])
-    row("blake3", blake3_kernel.SOURCE, blake3_kernel.REPLACES, hash_err,
-        t["hash"], t["hash_plain"])
+    for name, src, rep in (
+            ("pack", pipeline.PACK_SOURCE, pipeline.PACK_REPLACES),
+            ("blake3", blake3_kernel.SOURCE, blake3_kernel.REPLACES),
+            ("blake2", blake2_kernel.SOURCE, blake2_kernel.REPLACES)):
+        row(name, src, rep, err[name], t[name], t[name + "_plain"],
+            t[name + "_device"])
+
+    herr, hms, hplain, hdev = 0, 0.0, 0.0, 0.0
+    for name, max_len, ins in hufpack_cases(rng, dev):
+        e = max_abs_err(entropy_kernel.hufpack(*ins),
+                        entropy_kernel.hufpack_plain(*ins))
+        ms = cuda_ms(lambda: entropy_kernel.hufpack(*ins), 20)
+        pms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*ins), 5)
+        dms = device_ms(lambda: entropy_kernel.hufpack(*ins), 20,
+                        "hufpack_kernel")
+        log(f"hufpack {name}: S={ins[0].shape[0]}, n_pad="
+            f"{ins[0].shape[1]}, longest code {max_len} bits, "
+            f"max_abs_err {e}, {ms:.4f} ms by events, {dms:.4f} ms of "
+            f"device time (plain {pms:.4f} ms)")
+        herr, hms, hplain, hdev = (max(herr, e), hms + ms, hplain + pms,
+                                   hdev + dms)
+    row("hufpack", entropy_kernel.SOURCE, entropy_kernel.REPLACES, herr,
+        hms, hplain, hdev)
     return rows
 
 
@@ -231,10 +355,143 @@ def same_tree(a: str, b: str) -> int:
     return len(files)
 
 
+def stored_blocks(store_dir: str):
+    """(block hash, tag, raw size, compressed payload) of every block of
+    an FSBlockStore directory, as the compression store wrote them."""
+    import struct
+
+    from longtail_tpu_torch import _host
+
+    backing = _host.FSBlockStore(_host.FSStorage(), store_dir)
+    for d, _, files in os.walk(os.path.join(store_dir, "chunks")):
+        for f in sorted(files):
+            if f.endswith(".lrb"):
+                blk = backing.get_stored_block(int(f[2:-4], 16))
+                raw, comp = struct.unpack_from("<II", blk.block_data, 0)
+                yield (int(f[2:-4], 16), blk.block_index.tag, raw,
+                       bytes(blk.block_data[8:8 + comp]))
+
+
+def zstd_block_types(frame: bytes) -> dict:
+    """Counts of the zstd blocks of a single-segment frame by type (the
+    frames the device tier writes): raw, rle, compressed."""
+    fcs = frame[4] >> 6
+    off = 5 + (1, 2, 4, 8)[fcs]
+    out = {"raw": 0, "rle": 0, "compressed": 0}
+    while True:
+        h = int.from_bytes(frame[off:off + 3], "little")
+        kind = ("raw", "rle", "compressed")[(h >> 1) & 3]
+        out[kind] += 1
+        off += 3 + (1 if kind == "rle" else h >> 3)
+        if h & 1:
+            return out
+
+
+def store_summary(store_dir: str, codec: str) -> dict:
+    """Raw and stored bytes of a store, and how many blocks took each
+    route: host codec (under 64 KiB) or device tier, and for zstd device
+    frames their zstd blocks by type."""
+    out = {"blocks": 0, "raw": 0, "stored": 0, "host_route": 0,
+           "device_route": 0}
+    for _, _, raw, payload in stored_blocks(store_dir):
+        out["blocks"] += 1
+        out["raw"] += raw
+        out["stored"] += len(payload)
+        if raw < (1 << 16):
+            out["host_route"] += 1
+            continue
+        out["device_route"] += 1
+        if codec == "zstd":
+            for k, v in zstd_block_types(payload).items():
+                out[f"zstd_{k}"] = out.get(f"zstd_{k}", 0) + v
+    return out
+
+
+def stage4(src: str, n_batches: int, wrappers: dict) -> None:
+    """Stage 4 over the first batches of the tree's large files:
+    DevicePartIndexer(compress=True) with plan_hash(keep_words=True) ->
+    submit_compress -> collect_compress, against the same run from the
+    resident words (compress=False); every 8 MiB block's anchors go
+    through the host LZ4 assembler and must decode.  The launch counts
+    are set to 0 before the timed compress=True batches and read after
+    them: the only path that runs the scan with its bins output."""
+    import torch
+
+    from longtail_tpu_torch import _host
+    from longtail_tpu_torch.parallel import device_match
+    from longtail_tpu_torch.parallel.pipeline import DevicePartIndexer
+
+    dev = torch.device("cuda")
+    ix = {c: DevicePartIndexer(32768, dev, compress=c) for c in (True, False)}
+    P = ix[True].part_bytes
+    parts = []
+    for d, _, files in sorted(os.walk(src)):
+        for f in sorted(files):
+            data = np.fromfile(os.path.join(d, f), np.uint8)
+            parts += [data[o:o + P] for o in range(0, len(data), P)
+                      if len(data) > P]
+    B = ix[True].lanes
+    batches = [parts[i:i + B] for i in range(0, len(parts), B)]
+    batches = [b for b in batches if len(b) == B][:n_batches + 1]
+    if len(batches) < 2:
+        raise AssertionError(f"stage 4: under 2 full batches of {B} parts")
+
+    def run(indexer, batch):
+        entry = indexer.plan_hash(indexer.submit_host(list(enumerate(batch))),
+                                  keep_words=True)
+        handle = indexer.submit_compress(entry)
+        list(indexer.retire(entry))
+        return indexer.collect_compress(handle)
+
+    run(ix[True], batches[0])                       # warm-up
+    torch.cuda.synchronize()
+    n_anchors = 0
+    for w in wrappers.values():
+        w.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = [run(ix[True], b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    n_bytes = sum(len(p) for b in batches[1:] for p in b)
+    log(f"stage 4: {len(batches) - 1} batches of {B} x {P >> 20} MiB, "
+        f"chunk+hash+compress anchors {wall:.3f} s = "
+        f"{n_bytes / wall / 1e9:.3f} GB/s (one batch at a time); "
+        f"launches {counts}")
+    for k in ("scan", "walk", "pack", "blake3"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the stage-4 path never launched {k}")
+    blocks = 0
+    for batch, anchors in zip(batches[1:], got):
+        words = run(ix[False], batch)
+        if len(words) != len(anchors):
+            raise AssertionError("stage 4: block counts differ")
+        flat = np.zeros(B * P, np.uint8)
+        for i, p in enumerate(batch):
+            flat[i * P:i * P + len(p)] = p
+        blk = len(flat) // len(anchors)
+        for k, ((pos, ref), (wpos, wref)) in enumerate(zip(anchors, words)):
+            if not (np.array_equal(pos, wpos) and np.array_equal(ref, wref)):
+                raise AssertionError("stage 4: bins anchors differ from "
+                                     "words anchors")
+            block = flat[k * blk:(k + 1) * blk].tobytes()
+            keep = pos < len(block)
+            out = _host.lz4.assemble_anchors(block, pos[keep], ref[keep])
+            if _host.lz4.decompress(out, len(block)) != block:
+                raise AssertionError("stage 4: an LZ4 block does not decode")
+            blocks += 1
+            n_anchors += len(pos)
+    log(f"stage 4: {blocks} blocks, bins anchors == words anchors, "
+        f"{n_anchors} anchors, every LZ4 block decodes "
+        f"(anchor cap {device_match.FAST_CAP} per block)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gib", type=float, default=1.0,
                     help="size of the synthetic asset tree in GiB")
+    ap.add_argument("--blake2-gib", type=float, default=1 / 32,
+                    help="size of the tree of the BLAKE2 upsync in GiB")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -244,10 +501,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from longtail_tpu_torch import _host, _kernels, api
-    from longtail_tpu_torch.core.indexing import create_version_index
-    from longtail_tpu_torch.ops import blake3_kernel
+    from longtail_tpu_torch import _host, _kernels, cli
+    from longtail_tpu_torch.ops import (
+        blake2_kernel,
+        blake3_kernel,
+        compression_registry,
+        entropy_kernel,
+    )
     from longtail_tpu_torch.parallel import pipeline, stage1
+    from longtail_tpu_torch.stores.compressblockstore import (
+        CompressBlockStore,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -265,65 +529,120 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = check_kernels(args.seed)
 
-    # 4. main path
+    # 4. main path: the CLI's upsync --device, zstd (default), LZ4, BLAKE2
     C = _host.constants
+    wrappers = {"scan": stage1.scan, "walk": stage1.walk,
+                "pack": pipeline.pack,
+                "blake3": blake3_kernel.hash_chunks_words_device,
+                "blake2": blake2_kernel.hash_chunks_words_device,
+                "hufpack": entropy_kernel.hufpack}
+    paths = {  # name: (extra flags, kernels the path must launch, tree)
+        "zstd": ([], ("scan", "walk", "pack", "blake3", "hufpack"), "src"),
+        "lz4": (["--compression-algorithm", "lz4"],
+                ("scan", "walk", "pack", "blake3"), "src"),
+        "blake2": (["--hash-algorithm", "blake2"],
+                   ("scan", "walk", "pack", "blake2", "hufpack"), "src_b2"),
+    }
     tmp = tempfile.mkdtemp(prefix="lt_chip_smoke_")
     try:
-        src = os.path.join(tmp, "src")
-        total = make_tree(src, int(args.gib * (1 << 30)), args.seed)
-        log(f"tree: {total} bytes under {src}")
+        trees = {}
+        for tree, gib in (("src", args.gib), ("src_b2", args.blake2_gib)):
+            path = os.path.join(tmp, tree)
+            trees[tree] = (path, make_tree(path, int(gib * (1 << 30)),
+                                           args.seed))
+            log(f"tree: {trees[tree][1]} bytes under {path}")
+        src = trees["src"][0]
         fs = _host.FSStorage()
-        store_dir = os.path.join(tmp, "store")
-        wrappers = {"scan": stage1.scan, "walk": stage1.walk,
-                    "pack": pipeline.pack,
-                    "blake3": blake3_kernel.hash_chunks_words_device}
-        for w in wrappers.values():
-            w.LAUNCHES = 0
-        stage1.repair_lane.REPAIRS = 0
-        store = _host.CompressBlockStore(_host.FSBlockStore(fs, store_dir))
-        t0 = time.perf_counter()
-        vi, _ = api.upsync(fs, src, store, device=torch.device("cuda"))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: w.LAUNCHES for k, w in wrappers.items()}
-        log(f"upsync: {vi.asset_count} assets, {vi.chunk_count} chunks, "
-            f"{wall:.3f} s, {total / wall / 1e9:.3f} GB/s "
-            f"(chunk+hash on the card, LZ4 blocks on the host)")
-        log(f"launches in the main path: {launches}; ambiguous lanes "
-            f"repaired on the host: {stage1.repair_lane.REPAIRS}")
-        for k, v in launches.items():
-            if v <= 0:
-                raise AssertionError(f"the main path never launched {k}")
+        launches = {}
+        for name, (extra, need, tree) in paths.items():
+            tree_dir, total = trees[tree]
+            for w in wrappers.values():
+                w.LAUNCHES = 0
+            stage1.repair_lane.REPAIRS = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["upsync", "--device", "--storage-uri",
+                           os.path.join(tmp, f"store_{name}"),
+                           "--source-path", tree_dir, "--target-path",
+                           os.path.join(tmp, f"{name}.lvi"), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+            summary = store_summary(os.path.join(tmp, f"store_{name}"),
+                                    "lz4" if name == "lz4" else "zstd")
+            log(f"upsync --device {' '.join(extra) or '(zstd, blake3)'}: "
+                f"rc {rc}, {wall:.3f} s, {total / wall / 1e9:.3f} GB/s, "
+                f"ratio {summary['raw'] / summary['stored']:.4f}; "
+                f"launches {counts}; ambiguous lanes repaired "
+                f"{stage1.repair_lane.REPAIRS}; blocks {summary}")
+            if rc != 0:
+                raise AssertionError(f"upsync {name} exited {rc}")
+            for k in need:
+                if counts[k] <= 0:
+                    raise AssertionError(f"the {name} path never launched "
+                                         f"{k}")
+                launches.setdefault(k, counts[k])
         for r in rows:
             r["launches"] = launches[r["name"]]
 
-        # 5. held to the host (and a second device run, timed alone)
-        infos = _host.host_indexing.get_files_recursively(fs, src)
-        tags = np.full(infos.count, C.COMPRESSION_TYPE_LZ4_DEFAULT, np.uint32)
-        t0 = time.perf_counter()
-        vi_dev = create_version_index(fs, src, infos, asset_tags=tags,
-                                      workers=8, device=torch.device("cuda"))
-        torch.cuda.synchronize()
-        t_dev = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        vi_host = _host.host_indexing.create_version_index(
-            fs, src, infos, C.HASH_TYPE_BLAKE3, C.DEFAULT_TARGET_CHUNK_SIZE,
-            asset_tags=tags, workers=8, xp=np)
-        t_host = time.perf_counter() - t0
-        log(f"index only: device {t_dev:.3f} s "
-            f"({total / t_dev / 1e9:.3f} GB/s), host native {t_host:.3f} s "
-            f"({total / t_host / 1e9:.3f} GB/s)")
-        if vi.to_bytes() != vi_host.to_bytes():
-            raise AssertionError(".lvi differs from the host path's")
-        if vi_dev.to_bytes() != vi.to_bytes():
-            raise AssertionError("a second device index differs")
-        log(f".lvi: byte-identical to the host path "
-            f"({len(vi.to_bytes())} bytes)")
-        out = os.path.join(tmp, "out")
-        _host.host_api.downsync(
-            _host.CompressBlockStore(_host.FSBlockStore(fs, store_dir)), fs,
-            out, vi, min_block_usage_percent=0)
-        log(f"downsync: {same_tree(src, out)} files byte-identical")
+        # 5. held to the host
+        for name, hash_id, tag in (
+                ("zstd", C.HASH_TYPE_BLAKE3, C.COMPRESSION_TYPE_ZSTD_DEFAULT),
+                ("lz4", C.HASH_TYPE_BLAKE3, C.COMPRESSION_TYPE_LZ4_DEFAULT),
+                ("blake2", C.HASH_TYPE_BLAKE2,
+                 C.COMPRESSION_TYPE_ZSTD_DEFAULT)):
+            lvi = open(os.path.join(tmp, f"{name}.lvi"), "rb").read()
+            tree_dir = trees[paths[name][2]][0]
+            infos = _host.host_indexing.get_files_recursively(fs, tree_dir)
+            t0 = time.perf_counter()
+            host = _host.host_indexing.create_version_index(
+                fs, tree_dir, infos, hash_id, C.DEFAULT_TARGET_CHUNK_SIZE,
+                asset_tags=np.full(infos.count, tag, np.uint32), workers=8,
+                xp=np)
+            t_host = time.perf_counter() - t0
+            if lvi != host.to_bytes():
+                raise AssertionError(f"{name}: .lvi differs from the host "
+                                     "path's")
+            out = os.path.join(tmp, "out")
+            store = CompressBlockStore(_host.FSBlockStore(
+                fs, os.path.join(tmp, f"store_{name}")))
+            _host.host_api.downsync(store, fs, out,
+                                    _host.VersionIndex.from_bytes(lvi),
+                                    min_block_usage_percent=0)
+            log(f"{name}: .lvi byte-identical to the host path's "
+                f"({len(lvi)} bytes; host index {t_host:.3f} s); downsync: "
+                f"{same_tree(tree_dir, out)} files byte-identical")
+            shutil.rmtree(out)
+
+        for name, host_compress in (
+                ("zstd", lambda b: _host.zstd.compress(b, 3)),
+                ("lz4", _host.lz4.compress)):
+            store = CompressBlockStore(_host.FSBlockStore(
+                fs, os.path.join(tmp, f"store_{name}")))
+            raw_total = dev_total = host_total = 0
+            sampled = 0
+            for h, tag, raw, payload in stored_blocks(
+                    os.path.join(tmp, f"store_{name}")):
+                data = store.get_stored_block(h).block_data
+                raw_total += raw
+                dev_total += len(payload)
+                host_total += len(host_compress(data))
+                if raw >= (8 << 20) - (1 << 16) and sampled < 3:
+                    cpu = compression_registry.get_codec(tag, "cpu")
+                    if cpu.compress(tag, data) != payload:
+                        raise AssertionError(
+                            f"{name}: block {h:#x} recompressed on the CPU "
+                            "differs from the card's")
+                    sampled += 1
+            if sampled < 2:
+                raise AssertionError(f"{name}: under 2 full blocks sampled")
+            log(f"{name}: {sampled} sampled 8 MiB blocks recompressed on "
+                f"the CPU equal the card's; ratio {raw_total / dev_total:.4f}"
+                f" against host {name}"
+                f"{' level 3' if name == 'zstd' else ''} "
+                f"{raw_total / host_total:.4f} over the same blocks")
+
+        # 6. stage 4
+        stage4(src, 4, wrappers)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

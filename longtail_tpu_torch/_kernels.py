@@ -5,16 +5,19 @@ fails loudly: there is no host fallback for a kernel, so a missing
 ``nvcc`` or a failed build raises instead of returning None.
 
 At first use ``load()`` compiles every ``csrc/*.cu`` with plain nvcc for
-``sm_90a`` into ``build/longtail_tpu_torch/libltkernels.so`` (beside the
+``sm_90a``, one nvcc process per source, all started together, and links
+the objects into ``build/longtail_tpu_torch/libltkernels.so`` (beside the
 package), with a C interface bound through ctypes.  It rebuilds when a
 source, or this file, is newer than the library.  The algorithm constants
-(BLAKE3 IV, message permutation and flags, the HPCDC window) reach the
-CUDA sources as ``-D`` macros taken from the host modules, so the sources
-hold no copy of them.
+(BLAKE3 IV, message permutation and flags, BLAKE2s IV, SIGMA and
+parameter word, the HPCDC window, the anchor gram hash) reach the CUDA sources as ``-D`` macros
+taken from the Python modules, so the sources hold no copy of them.
 
 Every entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; the Python wrappers make the tensors'
-device current around the call and raise when it returns non-zero.
+device current around the call, raise when it returns non-zero, and
+count the launch with ``count_launch`` (the block codecs call the
+wrappers from several threads at once).
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "longtail_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libltkernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
@@ -45,9 +49,9 @@ _U = ctypes.c_uint32
 
 # name -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
-    # bytes, lengths, table, min1, min2, cnt, n_bytes, part_bytes, z, d,
-    # stream
-    "lt_stage1_scan": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _P],
+    # bytes, lengths, table, min1, min2, cnt, bins (or NULL), n_bytes,
+    # part_bytes, z, d, stream
+    "lt_stage1_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _P],
     # lengths, min1, min2, cnt, suf, out, n_parts, part_bytes,
     # seg_per_part, log2(z), min_size, max_size, c_pad, stream
     "lt_stage1_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -56,6 +60,10 @@ _SIGNATURES = {
     "lt_pack": [_P, _LL, _P, _P, _P, _I, _I, _P],
     # words, lengths, out, rows, row_words, stream
     "lt_blake3": [_P, _P, _P, _I, _I, _P],
+    # words, lengths, out, rows, row_words, stream
+    "lt_blake2": [_P, _P, _P, _I, _I, _P],
+    # lits, n_lit, table, out, totals, n_streams, n_pad, W, stream
+    "lt_hufpack": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -64,9 +72,15 @@ def sources() -> list[str]:
 
 
 def defines() -> list[str]:
-    """The algorithm constants as nvcc -D flags, from the host modules."""
+    """The algorithm constants as nvcc -D flags, from the Python modules."""
+    from longtail_tpu_torch.parallel import device_match as dm
+
     b3 = _host.host_blake3
-    # one macro per word: nvcc splits a -D value at commas
+    # one macro per value: nvcc splits a -D value at commas.  A BLAKE2s
+    # SIGMA round is one value, its 16 indices packed 4 bits each, slot 0
+    # lowest.
+    sigma = [sum(int(x) << (4 * i) for i, x in enumerate(r))
+             for r in _host.BLAKE2_SIGMA]
     return [
         *(f"-DLT_BLAKE3_IV{i}={int(x):#x}u" for i, x in enumerate(b3.IV)),
         *(f"-DLT_BLAKE3_PERM{i}={int(x)}" for i, x in enumerate(b3.PERM)),
@@ -76,7 +90,15 @@ def defines() -> list[str]:
         f"-DLT_BLAKE3_ROOT={int(b3.ROOT)}u",
         f"-DLT_BLAKE3_BLOCK_BYTES={int(b3.BLOCK_BYTES)}",
         f"-DLT_BLAKE3_LEAF_BYTES={int(b3.LEAF_BYTES)}",
+        *(f"-DLT_BLAKE2_IV{i}={int(x):#x}u"
+          for i, x in enumerate(_host.BLAKE2_IV)),
+        *(f"-DLT_BLAKE2_SIGMA{r}={v:#x}ull" for r, v in enumerate(sigma)),
+        f"-DLT_BLAKE2_PARAM0={int(_host.BLAKE2_PARAM0):#x}u",
+        f"-DLT_BLAKE2_BLOCK_BYTES={int(_host.BLAKE2_BLOCK_BYTES)}",
         f"-DLT_HPCDC_WINDOW={int(_host.constants.CHUNKER_WINDOW_SIZE)}",
+        f"-DLT_GRAM_H0={dm.GRAM_H0:#x}u",
+        f"-DLT_GRAM_H1={dm.GRAM_H1:#x}u",
+        f"-DLT_BIN_WORDS={dm.BIN_WORDS}",
     ]
 
 
@@ -93,26 +115,51 @@ def find_nvcc() -> str:
         "/bin): the CUDA kernels of longtail_tpu_torch cannot be built")
 
 
-def build_command(out_path: str) -> list[str]:
-    return [find_nvcc(), *NVCC_FLAGS, *defines(), "-o", out_path, *sources()]
+def compile_command(nvcc: str, src: str, obj: str) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, *defines(), "-c", src, "-o", obj]
 
 
 def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
-    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh")) + [__file__]
+    from longtail_tpu_torch.parallel import device_match
+
+    # the sources, and the Python modules their -D constants come from
+    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh")) + [
+        __file__, device_match.__file__]
     return os.path.getmtime(LIB_PATH) < max(os.path.getmtime(p) for p in deps)
 
 
 def _build() -> None:
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = build_command(tmp)                  # raises when nvcc is missing
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-8000:]}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = find_nvcc()                        # raises when nvcc is missing
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in sources()]
+    try:
+        procs = [subprocess.Popen(compile_command(nvcc, src, obj),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources(), objs)]
+        errors = []
+        for src, proc in zip(sources(), procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} (exit "
+                              f"{proc.returncode}):\n{err[-4000:]}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = f"{LIB_PATH}.{tag}"
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{proc.stderr[-8000:]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def load() -> ctypes.CDLL:
@@ -129,6 +176,13 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def count_launch(wrapper) -> None:
+    """wrapper.LAUNCHES += 1, under a lock: read-modify-write is not
+    atomic across threads."""
+    with _COUNT_LOCK:
+        wrapper.LAUNCHES += 1
 
 
 def check(rc: int, name: str) -> None:

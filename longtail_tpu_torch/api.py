@@ -1,9 +1,11 @@
 """High-level upsync with the chunk+hash data plane on a torch device.
 
 Port of ``longtail_tpu/api.py`` ``upsync`` (the reference CLI's UpSync,
-cmd/main.c:940).  Dedup, block writing and the store are the host
-package's; block compression stays on the host.  ``downsync`` and
-``validate_version`` are not ported yet (``_host.host_api`` has them).
+cmd/main.c:940).  Dedup and block writing are the host package's; the
+block store decides where blocks are compressed (the port's
+``stores/compressblockstore.py`` runs its codecs' match search on its
+own device).  ``downsync`` and ``validate_version`` are not ported yet
+(``_host.host_api`` has them).
 """
 
 from __future__ import annotations

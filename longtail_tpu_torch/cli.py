@@ -1,13 +1,17 @@
 """Command-line interface of the port: the reference CLI's commands and
-flags (``longtail_tpu/cli.py``), with ``upsync --device`` running the
-chunk+hash data plane on the CUDA card.
+flags (``longtail_tpu/cli.py``), with ``upsync --device`` running on the
+CUDA card what the JAX package's ``--device`` runs on its accelerator:
+the chunk+hash data plane (BLAKE3 or BLAKE2) and the match search of the
+LZ4 and zstd block codecs, with zstd's Huffman literal pack.
 
 Usage: python -m longtail_tpu_torch.cli <command> [flags]
 
+``upsync`` writes through the port's ``CompressBlockStore``, whose codecs
+run on the card with ``--device`` and on the host without it.
 ``--device`` is ported only for ``upsync`` with ``--hash-algorithm
-blake3``; anywhere else it raises instead of quietly running the host
-path.  Block compression stays on the host.  The other commands run the
-host package's implementation.
+blake3`` or ``blake2``; anywhere else it raises instead of quietly
+running the host path.  The other commands run the host package's
+implementation.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import sys
 import torch
 
 from longtail_tpu_torch import _host, api
+from longtail_tpu_torch.core.indexing import DEVICE_HASH_KINDS
+from longtail_tpu_torch.ops.compression_registry import supported_tags
+from longtail_tpu_torch.stores.compressblockstore import CompressBlockStore
 
 _hc = _host.host_cli
 
@@ -24,13 +31,16 @@ _hc = _host.host_cli
 def cmd_upsync(args) -> int:
     device = None
     if args.device:
-        if args.hash_algorithm != "blake3":
+        hash_identifier = _hc.HASH_NAMES[args.hash_algorithm]
+        if hash_identifier not in DEVICE_HASH_KINDS:
             raise NotImplementedError(
                 f"upsync --device with --hash-algorithm "
-                f"{args.hash_algorithm} is not ported yet (only blake3 is)")
+                f"{args.hash_algorithm} is not ported yet (only "
+                f"{' and '.join(sorted(DEVICE_HASH_KINDS.values()))} are)")
         device = torch.device("cuda")
     storage = _host.FSStorage()
-    store = _hc._open_store(args.storage_uri)
+    store = CompressBlockStore(_host.FSBlockStore(storage, args.storage_uri),
+                               device=device)
     vi, vsi = api.upsync(
         storage, args.source_path.rstrip("/"), store,
         target_chunk_size=args.target_chunk_size,
@@ -67,7 +77,7 @@ def main(argv=None) -> int:
     name = getattr(args, "compression_algorithm", "")
     tag = _hc.COMPRESSION_NAMES.get(name)
     if tag not in (None, _host.constants.COMPRESSION_TYPE_NONE):
-        if tag not in _hc.supported_tags():
+        if tag not in supported_tags():
             p.error(f"--compression-algorithm {name} is not available "
                     "(no codec registered on this host)")
         if name.startswith("brotli") and not _host.brotli.available():

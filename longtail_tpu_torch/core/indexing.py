@@ -25,16 +25,22 @@ C = _host.constants
 FileInfos = _host.host_indexing.FileInfos
 get_files_recursively = _host.host_indexing.get_files_recursively
 
+# the hashes the device data plane runs, by hash identifier
+DEVICE_HASH_KINDS = {C.HASH_TYPE_BLAKE3: "blake3",
+                     C.HASH_TYPE_BLAKE2: "blake2"}
+
 
 def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
-                         target_chunk_size: int, device: torch.device,
-                         progress=_host.null_progress,
+                         target_chunk_size: int, hash_identifier: int,
+                         device: torch.device, progress=_host.null_progress,
                          workers: int = 8) -> list:
     """Stream large files' parts through the device pipeline while small
-    files run on the host's native path concurrently (a small file would
-    waste a whole lane).  Returns per-asset (hashes u64, sizes u32)."""
+    files run on the host path concurrently (a small file would
+    waste a whole lane), both with the hash ``hash_identifier``.  Returns
+    per-asset (hashes u64, sizes u32)."""
     hi = _host.host_indexing
-    indexer = DevicePartIndexer(target_chunk_size, device)
+    indexer = DevicePartIndexer(target_chunk_size, device,
+                                hash_kind=DEVICE_HASH_KINDS[hash_identifier])
     max_part = indexer.part_bytes
     small_cutoff = max(indexer.cfg.max_size, max_part // 64)
     count = file_infos.count
@@ -56,7 +62,7 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
             done += 1
             progress(min(done, count), count)
 
-    hasher = _host.get_hasher(C.HASH_TYPE_BLAKE3)
+    hasher = _host.get_hasher(hash_identifier)
 
     def small_work(i: int):
         results[i] = hi._chunk_one_asset(
@@ -96,20 +102,20 @@ def chunk_assets(storage, root: str, file_infos: FileInfos,
                  workers: int | None = None, device=None,
                  progress=_host.null_progress):
     """Chunk and hash every asset.  device=None runs the host path;
-    otherwise the data plane runs on ``device`` (BLAKE3 only so far)."""
+    otherwise the data plane runs on ``device`` (BLAKE3 or BLAKE2)."""
     if device is None:
         return _host.host_indexing.chunk_assets(
             storage, root, file_infos, hash_identifier, target_chunk_size,
             asset_tags, workers, xp=np, progress=progress)
     device = resolve_device(device)
-    if hash_identifier != C.HASH_TYPE_BLAKE3:
+    if hash_identifier not in DEVICE_HASH_KINDS:
         raise NotImplementedError(
             f"hash {hash_identifier:#x} on a device is not ported yet "
-            "(only blake3 is)")
+            "(only blake3 and blake2 are)")
     hasher = _host.get_hasher(hash_identifier)
     results = _chunk_assets_device(storage, root, file_infos,
-                                   target_chunk_size, device, progress,
-                                   workers or 8)
+                                   target_chunk_size, hash_identifier,
+                                   device, progress, workers or 8)
     return _host.host_indexing.assemble_chunked_assets(
         results, file_infos, hasher, asset_tags)
 

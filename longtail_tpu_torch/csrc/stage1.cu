@@ -21,6 +21,17 @@
 // the per-thread (min1, min2, cnt) of each segment.  Positions of a part
 // before WINDOW-1 are masked, so a window never needs the previous
 // part's bytes.
+//   With a bins pointer the same launch also emits the fast compression
+// tier's per-256-byte-bin anchor samples (device_match
+// bin_mins_from_words; stage1.py _make_scan_kernel with_anchors): for
+// every word w of the batch the 8-byte-gram hash of words w and w + 1 of
+// the flat batch (0 after its last word), packed as (hash & ~63) |
+// (w mod 64), and the minimum over each bin's 64 words.  Each thread
+// takes 4 consecutive words (one 16-byte load, plus the next word, which
+// for the tile's last thread lies in the next tile), and 16 threads
+// reduce a bin with shuffles.  The Pallas kernel reads its tile's first
+// word as the next word of the tile's last gram; this kernel follows the
+// XLA definition instead.
 //
 // lt_stage1_walk replaces stage1.py _make_walk_kernel.  It runs the
 // sequential min/max walk (Longtail_HPCDCNextChunk semantics) of
@@ -39,7 +50,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef LT_HPCDC_WINDOW
+#if !defined(LT_HPCDC_WINDOW) || !defined(LT_GRAM_H0)
 #error "build through longtail_tpu_torch/_kernels.py, which defines the algorithm constants"
 #endif
 
@@ -52,6 +63,11 @@ constexpr int kRun = kTile / kScanThreads;  // consecutive positions per thread
 constexpr int kHalo = kWindow - 1;
 constexpr int kTv = kHalo + kTile;          // table values per block
 constexpr int32_t kBig = 0x7fffffff;
+constexpr int kBinWords = LT_BIN_WORDS;     // words per anchor bin
+constexpr int kBinThreads = kBinWords / 4;  // threads per bin
+static_assert(kTile % (4 * kBinWords) == 0 && kBinThreads <= 32 &&
+                  (kBinThreads & (kBinThreads - 1)) == 0,
+              "a bin is whole 4-word runs of one warp");
 
 __device__ __forceinline__ int skew(int i) { return i + (i >> 4); }
 
@@ -64,7 +80,8 @@ scan_kernel(const uint8_t* __restrict__ bytes,
             const int32_t* __restrict__ lengths,
             const uint32_t* __restrict__ table,
             int32_t* __restrict__ min1, int32_t* __restrict__ min2,
-            int32_t* __restrict__ cnt, int part_bytes, int z, uint32_t d) {
+            int32_t* __restrict__ cnt, uint32_t* __restrict__ bins,
+            int part_bytes, int z, uint32_t d) {
   __shared__ uint32_t tab[256];
   __shared__ uint32_t tv[kTv + kTv / 16 + 1];
   __shared__ int32_t r1[kScanThreads], r2[kScanThreads], rc[kScanThreads];
@@ -139,6 +156,32 @@ scan_kernel(const uint8_t* __restrict__ bytes,
     min2[seg] = r2[tid];
     cnt[seg] = rc[tid];
   }
+
+  if (bins != nullptr) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(bytes);
+    const long long w0 = tile0 / 4 + 4 * tid;   // this thread's first word
+    const long long n_words = (long long)gridDim.x * (kTile / 4);
+    const uint4 q = reinterpret_cast<const uint4*>(w + w0)[0];
+    const uint32_t v[5] = {q.x, q.y, q.z, q.w,
+                           w0 + 4 < n_words ? w[w0 + 4] : 0u};
+    uint32_t best = 0xffffffffu;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t h = (v[k] * (uint32_t)LT_GRAM_H0) ^
+                         ((v[k + 1] * (uint32_t)LT_GRAM_H1) >> 13) ^
+                         (v[k + 1] << 7);
+      const uint32_t packed = (h & ~(uint32_t)(kBinWords - 1)) |
+                              (uint32_t)((4 * tid + k) & (kBinWords - 1));
+      best = min(best, packed);
+    }
+#pragma unroll
+    for (int o = kBinThreads / 2; o > 0; o >>= 1) {
+      best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
+    }
+    if ((tid & (kBinThreads - 1)) == 0) {
+      bins[tile0 / (4 * kBinWords) + tid / kBinThreads] = best;
+    }
+  }
 }
 
 __global__ void walk_kernel(const int32_t* __restrict__ lengths,
@@ -179,15 +222,17 @@ __global__ void walk_kernel(const int32_t* __restrict__ lengths,
 
 }  // namespace
 
+// bins: NULL, or (n_bytes / 256,) u32 anchor bin-mins
 extern "C" int lt_stage1_scan(const void* bytes, const void* lengths,
                               const void* table, void* min1, void* min2,
-                              void* cnt, long long n_bytes, int part_bytes,
-                              int z, uint32_t d, void* stream) {
+                              void* cnt, void* bins, long long n_bytes,
+                              int part_bytes, int z, uint32_t d,
+                              void* stream) {
   const unsigned blocks = (unsigned)(n_bytes / kTile);
   scan_kernel<<<blocks, kScanThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)bytes, (const int32_t*)lengths,
       (const uint32_t*)table, (int32_t*)min1, (int32_t*)min2, (int32_t*)cnt,
-      part_bytes, z, d);
+      (uint32_t*)bins, part_bytes, z, d);
   return (int)cudaGetLastError();
 }
 

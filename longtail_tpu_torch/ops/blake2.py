@@ -1,0 +1,88 @@
+"""BLAKE2s-64 constants and the plain PyTorch batched chunk hash.
+
+The constants are the host module's own values (``longtail_tpu/ops/
+blake2.py``).  ``hash_chunks_words`` is ``longtail_tpu.ops.blake2.
+hash_chunks_words`` in torch lane math: every row is a lane, and its
+64-byte blocks compress one after another as masked lane updates.  torch
+has no unsigned 32-bit arithmetic, so words ride as int64 masked to 32
+bits.
+
+It is the plain version of the CUDA kernel in ``blake2_kernel.py`` and
+has the port's BLAKE3 contract: words ``(rows, padded/4)`` int32,
+little-endian and zero past each row's length, padded a multiple of 64;
+lengths ``(rows,)``; returns ``(lo, hi)``, each ``(rows,)`` int32 holding
+the u32 digest words.  A zero-length row hashes one zero final block
+(the empty-message digest).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from longtail_tpu_torch import _host
+from longtail_tpu_torch.ops.blake3 import to_int32
+
+IV = _host.BLAKE2_IV
+SIGMA = _host.BLAKE2_SIGMA
+PARAM0 = _host.BLAKE2_PARAM0
+BLOCK_BYTES = _host.BLAKE2_BLOCK_BYTES
+
+_M = 0xFFFFFFFF
+
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & _M
+
+
+def _g(v, a, b, c, d, x, y):
+    v[a] = (v[a] + v[b] + x) & _M
+    v[d] = _rotr(v[d] ^ v[a], 16)
+    v[c] = (v[c] + v[d]) & _M
+    v[b] = _rotr(v[b] ^ v[c], 12)
+    v[a] = (v[a] + v[b] + y) & _M
+    v[d] = _rotr(v[d] ^ v[a], 8)
+    v[c] = (v[c] + v[d]) & _M
+    v[b] = _rotr(v[b] ^ v[c], 7)
+
+
+def _compress(h, m, t, final):
+    """One BLAKE2s compression of every lane (int64 lanes); t the byte
+    counter (< 2**32), final the lanes whose block is their last."""
+    z = torch.zeros_like(h[0])
+    v = list(h) + [z + IV[i] for i in range(4)] + [
+        t ^ IV[4], z + IV[5], torch.where(final, IV[6] ^ _M, IV[6]),
+        z + IV[7]]
+    for s in SIGMA:
+        _g(v, 0, 4, 8, 12, m[s[0]], m[s[1]])
+        _g(v, 1, 5, 9, 13, m[s[2]], m[s[3]])
+        _g(v, 2, 6, 10, 14, m[s[4]], m[s[5]])
+        _g(v, 3, 7, 11, 15, m[s[6]], m[s[7]])
+        _g(v, 0, 5, 10, 15, m[s[8]], m[s[9]])
+        _g(v, 1, 6, 11, 12, m[s[10]], m[s[11]])
+        _g(v, 2, 7, 8, 13, m[s[12]], m[s[13]])
+        _g(v, 3, 4, 9, 14, m[s[14]], m[s[15]])
+    return [h[i] ^ v[i] ^ v[i + 8] for i in range(8)]
+
+
+def hash_chunks_words(words: torch.Tensor, lengths: torch.Tensor):
+    """Plain BLAKE2s-64 of each row: (words, lengths) -> (lo, hi)."""
+    rows, row_words = words.shape
+    padded = row_words * 4
+    if padded % BLOCK_BYTES or padded == 0:
+        raise ValueError(f"rows of {padded} bytes are not a positive "
+                         f"multiple of {BLOCK_BYTES}")
+    w = words.to(torch.int64) & _M
+    lengths = lengths.to(device=words.device, dtype=torch.int64)
+    n_blocks = torch.clamp((lengths + BLOCK_BYTES - 1) // BLOCK_BYTES, min=1)
+    h = [torch.full((rows,), IV[i], dtype=torch.int64, device=words.device)
+         for i in range(8)]
+    h[0] = h[0] ^ PARAM0
+    for k in range(padded // BLOCK_BYTES):
+        active = k < n_blocks
+        if not bool(active.any()):
+            break
+        m = [w[:, 16 * k + j] for j in range(16)]
+        t = torch.clamp(lengths, max=(k + 1) * BLOCK_BYTES)
+        out = _compress(h, m, t, n_blocks == k + 1)
+        h = [torch.where(active, out[i], h[i]) for i in range(8)]
+    return to_int32(h[0]), to_int32(h[1])

@@ -35,7 +35,7 @@ def hash_chunks_words_device(words: torch.Tensor, lengths: torch.Tensor):
                 words.data_ptr(), lengths.data_ptr(), out.data_ptr(), rows,
                 row_words, _kernels.stream_of(words))
         _kernels.check(rc, "lt_blake3")
-        hash_chunks_words_device.LAUNCHES += 1
+        _kernels.count_launch(hash_chunks_words_device)
     return out[0], out[1]
 
 

@@ -11,8 +11,12 @@ stream through three stages:
   class, and a lane flagged ambiguous is re-chunked exactly on the host.
 - **Stage 3 (device)**: per class, the pack kernel copies the chunks'
   bytes out of the resident batch into aligned word rows and the BLAKE3
-  kernel (``ops/blake3_kernel.py``) hashes them; the digests of all
-  classes come back in one copy.
+  or BLAKE2 kernel (``ops/blake3_kernel.py``, ``ops/blake2_kernel.py``)
+  hashes them; the digests of all classes come back in one copy.
+- **Stage 4 (device, optional)**: ``submit_compress`` finds LZ match
+  anchors per block of the resident batch (``parallel/device_match.py``)
+  from the scan's bin-mins (``compress=True``) or from the batch's words,
+  and ``collect_compress`` brings them back in one copy.
 
 Host data reaches the card through pinned buffers with non-blocking
 copies on the current stream, and each stage's result comes back the same
@@ -35,8 +39,13 @@ import numpy as np
 import torch
 
 from longtail_tpu_torch import _kernels
-from longtail_tpu_torch.ops.blake3_kernel import hash_chunks_words_device
+from longtail_tpu_torch.ops import blake2_kernel, blake3_kernel
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+from longtail_tpu_torch.parallel.device_match import (
+    bins_anchors_packed,
+    decode_packed,
+    fast_anchors_packed,
+)
 from longtail_tpu_torch.parallel.stage1 import (
     Stage1Plan,
     hash_table,
@@ -49,6 +58,10 @@ _LEAF = 1024
 
 PACK_SOURCE = "longtail_tpu_torch/csrc/pack.cu"
 PACK_REPLACES = "longtail_tpu/parallel/pipeline.py:166"
+
+# the chunk hash of each hash kind: (words, lengths) -> (lo, hi)
+HASHERS = {"blake3": blake3_kernel.hash_chunks_words_device,
+           "blake2": blake2_kernel.hash_chunks_words_device}
 
 
 def resolve_device(device) -> torch.device:
@@ -102,7 +115,7 @@ def pack(batch: torch.Tensor, starts: torch.Tensor, sizes: torch.Tensor,
                 sizes.data_ptr(), out.data_ptr(), rows, padded // 4,
                 _kernels.stream_of(batch))
         _kernels.check(rc, "lt_pack")
-        pack.LAUNCHES += 1
+        _kernels.count_launch(pack)
     return out
 
 
@@ -178,11 +191,19 @@ class DevicePartIndexer:
     ``target_chunk_size`` fixes the chunking geometry and the part size
     (``target_chunk_size * 1024``); ``batch_bytes`` sizes the lane batch.
     ``device`` is where the data plane runs: a CUDA device runs the
-    kernels, ``"cpu"`` their plain versions.
+    kernels, ``"cpu"`` their plain versions.  ``hash_kind`` ("blake3" or
+    "blake2") picks the chunk hash; ``compress=True`` has the scan also
+    emit the anchor bin-mins that stage 4 (``submit_compress``) reads.
     """
 
     def __init__(self, target_chunk_size: int, device,
-                 batch_bytes: int = 64 << 20, lanes: int | None = None):
+                 batch_bytes: int = 64 << 20, lanes: int | None = None,
+                 hash_kind: str = "blake3", compress: bool = False):
+        if hash_kind not in HASHERS:
+            raise ValueError(f"no device hasher for {hash_kind!r}")
+        self.hash_kind = hash_kind
+        self._hash = HASHERS[hash_kind]
+        self.compress = compress
         self.device = resolve_device(device)
         self.cfg = ChunkerConfig.from_target(target_chunk_size)
         self.part_bytes = target_chunk_size * 1024
@@ -226,12 +247,15 @@ class DevicePartIndexer:
                host_rows: np.ndarray | None = None):
         """Stage 1 on a device-resident (lanes * part_bytes,) uint8 batch:
         queue scan + walk and the async fetch of the walk output.
-        host_rows (the same bytes on the host) makes lane repair cheap."""
+        host_rows (the same bytes on the host) makes lane repair cheap.
+        With compress=True the scan's bin-mins ride in the entry."""
         lens = self._host_buffer((self.lanes,), torch.int32)
         lens.numpy()[:] = lengths
-        out = stage1(dev_rows, self._upload(lens), self._table, self.plan)
+        lens = self._upload(lens)
+        out, bins = stage1(dev_rows, lens, self._table, self.plan,
+                           with_bins=self.compress)
         out_host, ev = self._fetch(out)
-        return (tags, dev_rows, lengths, out_host, ev, host_rows)
+        return (tags, dev_rows, lengths, out_host, ev, host_rows, bins)
 
     def submit_host(self, batch):
         """Stage 1 from host parts: copy (tag, bytes) pairs into a pinned
@@ -254,11 +278,15 @@ class DevicePartIndexer:
 
     # -- stage 2 + 3 ------------------------------------------------------
 
-    def plan_hash(self, entry):
+    def plan_hash(self, entry, keep_words: bool = False):
         """Stage 2: wait for the walk output, repair flagged lanes, group
         chunks by size class; stage 3: queue pack + hash per class and
-        the async fetch of all digests."""
-        tags, dev_rows, lengths, out_host, ev, host_rows = entry
+        the async fetch of all digests.
+
+        keep_words=True appends the resident batch viewed as int32 words
+        and the scan's bin-mins (or None) to the returned entry, so that
+        stage 4 runs on the same device-resident data."""
+        tags, dev_rows, lengths, out_host, ev, host_rows, bins = entry
         P = self.part_bytes
         n_lanes = len(tags)
         if ev is not None:
@@ -308,19 +336,51 @@ class DevicePartIndexer:
             r = len(idx)
             st, sz = blob[o:o + r], blob[o + r:o + 2 * r]
             o += 2 * r
-            lo, hi = hash_chunks_words_device(pack(dev_rows, st, sz, cls), sz)
+            lo, hi = self._hash(pack(dev_rows, st, sz, cls), sz)
             res.append(torch.stack([lo, hi]))
         res = torch.cat(res, dim=1) if res else torch.zeros(
             (2, 0), dtype=torch.int32, device=self.device)
         order = np.concatenate([idx for _, idx in classes]) if classes \
             else np.zeros(0, np.int64)
         res_host, ev = self._fetch(res)
-        return (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
+        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
+        if keep_words:
+            out += (dev_rows.view(torch.int32), bins)
+        return out
+
+    # -- stage 4 ----------------------------------------------------------
+
+    def submit_compress(self, entry, block_bytes: int = 8 << 20,
+                        max_offset_words: int = 16383):
+        """Stage 4: queue the fast-tier anchor extraction for the batch of
+        an entry from plan_hash(keep_words=True), per ``block_bytes``
+        block, and the async fetch of its single packed result.  With
+        compress=True only the bin-level sorts run (the scan already read
+        the bytes); otherwise the bin-mins come from the resident words
+        first.  Collect with collect_compress()."""
+        words, bins = entry[6], entry[7]
+        if bins is not None:
+            packed = bins_anchors_packed(
+                bins, block_bytes // 256, max_offset_words=max_offset_words)
+        else:
+            packed = fast_anchors_packed(
+                words, block_bytes // 4, max_offset_words=max_offset_words)
+        return self._fetch(packed)
+
+    @staticmethod
+    def collect_compress(handle):
+        """Wait for stage 4's result: per-block position-sorted byte-offset
+        (pos, ref) anchor lists, ready for the host LZ4 assembler
+        (``assemble_anchors``) or the zstd sequence walk."""
+        packed, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return decode_packed(packed.numpy())
 
     def retire(self, entry):
         """Stage 3 drain: wait for the digests and yield
         (tag, sizes u32, hashes u64) per part in submission order."""
-        tags, lane_sizes, counts, res_host, ev, order = entry
+        tags, lane_sizes, counts, res_host, ev, order = entry[:6]
         if ev is not None:
             ev.synchronize()
         res = res_host.numpy().view(np.uint32).astype(np.uint64)

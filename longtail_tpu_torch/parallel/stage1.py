@@ -7,7 +7,9 @@ parts of ``part_bytes`` each, laid end to end in one uint8 tensor.
   ``scan_plain``) computes the 48-tap rolling hash at every position,
   marks cut candidates and reduces them to per-``Z``-byte-segment
   summaries ``(min1, min2, cnt)``: the two smallest candidate ends
-  (absolute in the batch) and the candidate count.
+  (absolute in the batch) and the candidate count.  With ``with_bins``
+  the same pass also yields the fast compression tier's anchor bin-mins
+  (``device_match.bin_mins_from_words`` over the batch's words).
 - ``suffix_min`` gives each segment the smallest ``min1`` of the later
   segments of its part (plain torch, as the JAX package does it in XLA).
 - ``walk`` (kernel lt_stage1_walk, plain ``walk_plain``) resolves the
@@ -32,6 +34,10 @@ import torch
 
 from longtail_tpu_torch import _host, _kernels
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+from longtail_tpu_torch.parallel.device_match import (
+    BIN_WORDS,
+    bin_mins_from_words,
+)
 
 WINDOW = _host.constants.CHUNKER_WINDOW_SIZE
 BIG = 2**31 - 1
@@ -103,9 +109,11 @@ def _shift_back(x, k: int):
 
 
 def scan_plain(batch: torch.Tensor, lengths: torch.Tensor,
-               table: torch.Tensor, plan: Stage1Plan):
+               table: torch.Tensor, plan: Stage1Plan,
+               with_bins: bool = False):
     """Plain scan: (batch (lanes*part_bytes,) uint8, lengths (lanes,),
-    table (256,) int32) -> (min1, min2, cnt), each (lanes*Sp,) int32."""
+    table (256,) int32) -> (min1, min2, cnt), each (lanes*Sp,) int32,
+    and with_bins the bin-mins (lanes*part_bytes/256,) int32 (u32 bits)."""
     P, z = plan.part_bytes, plan.z
     d = plan.cfg.discriminator
     tab = table.to(torch.int64) & _M
@@ -125,15 +133,19 @@ def scan_plain(batch: torch.Tensor, lengths: torch.Tensor,
         m1 = ends.min(dim=1).values
         m2 = torch.where(ends == m1[:, None], BIG, ends).min(dim=1).values
         outs.append((m1, m2, live.view(-1, z).sum(dim=1)))
-    return tuple(torch.cat([o[i] for o in outs]).to(torch.int32)
-                 for i in range(3))
+    out = tuple(torch.cat([o[i] for o in outs]).to(torch.int32)
+                for i in range(3))
+    if with_bins:
+        out += (bin_mins_from_words(batch.view(torch.int32),
+                                    plan.lanes * P // 4),)
+    return out
 
 
 def scan(batch: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor,
-         plan: Stage1Plan):
+         plan: Stage1Plan, with_bins: bool = False):
     """Scan kernel wrapper; same contract as scan_plain."""
     if batch.device.type == "cpu":
-        return scan_plain(batch, lengths, table, plan)
+        return scan_plain(batch, lengths, table, plan, with_bins)
     n = plan.lanes * plan.part_bytes
     _kernels.require("batch", batch, torch.uint8, (n,))
     _kernels.require("lengths", lengths, torch.int32, (plan.lanes,),
@@ -143,14 +155,19 @@ def scan(batch: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor,
         raise ValueError("batch: the scan kernel reads 16-byte aligned words")
     out = torch.empty((3, n // plan.z), dtype=torch.int32,
                       device=batch.device)
+    bins = torch.empty((n // (4 * BIN_WORDS),), dtype=torch.int32,
+                       device=batch.device) if with_bins else None
     with torch.cuda.device(batch.device):
         rc = _kernels.load().lt_stage1_scan(
             batch.data_ptr(), lengths.data_ptr(), table.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), n,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            None if bins is None else bins.data_ptr(), n,
             plan.part_bytes, plan.z, plan.cfg.discriminator,
             _kernels.stream_of(batch))
     _kernels.check(rc, "lt_stage1_scan")
-    scan.LAUNCHES += 1
+    _kernels.count_launch(scan)
+    if with_bins:
+        return out[0], out[1], out[2], bins
     return out[0], out[1], out[2]
 
 
@@ -223,7 +240,7 @@ def walk(lengths, min1, min2, cnt, suf, plan: Stage1Plan):
             plan.z.bit_length() - 1, plan.cfg.min_size, plan.cfg.max_size,
             c_pad, _kernels.stream_of(lengths))
     _kernels.check(rc, "lt_stage1_walk")
-    walk.LAUNCHES += 1
+    _kernels.count_launch(walk)
     return out
 
 
@@ -231,11 +248,13 @@ walk.LAUNCHES = 0
 
 
 def stage1(batch: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor,
-           plan: Stage1Plan) -> torch.Tensor:
-    """scan -> suffix_min -> walk: the (lanes, c_pad + 2) walk output."""
-    min1, min2, cnt = scan(batch, lengths, table, plan)
+           plan: Stage1Plan, with_bins: bool = False):
+    """scan -> suffix_min -> walk: (the (lanes, c_pad + 2) walk output,
+    the scan's bin-mins with with_bins, else None)."""
+    min1, min2, cnt, *bins = scan(batch, lengths, table, plan, with_bins)
     suf = suffix_min(min1, plan)
-    return walk(lengths, min1, min2, cnt, suf, plan)
+    return (walk(lengths, min1, min2, cnt, suf, plan),
+            bins[0] if bins else None)
 
 
 def unpack_walk(out: np.ndarray, plan: Stage1Plan):

@@ -17,7 +17,8 @@ from longtail_tpu.core.indexing import (  # noqa: E402
     create_version_index as j_create_version_index,
 )
 from longtail_tpu.formats.version_index import VersionIndex  # noqa: E402
-from longtail_tpu.ops import blake3 as jblake3, cdc  # noqa: E402
+from longtail_tpu.ops import blake3 as jblake3, cdc, lz4  # noqa: E402
+from longtail_tpu.parallel import device_match as jdm  # noqa: E402
 from longtail_tpu.parallel import pipeline as jpipeline  # noqa: E402
 from longtail_tpu.parallel.device_chunker import (  # noqa: E402
     ChunkerConfig as JChunkerConfig,
@@ -136,6 +137,47 @@ def test_index_stream_matches_host_oracle():
         np.testing.assert_array_equal(hashes, want)
 
 
+def test_stage4_anchors_from_bins_equal_words_and_jax():
+    """submit_compress / collect_compress on a 2-lane batch of 4 blocks:
+    the anchors from the scan's bin-mins (compress=True) equal those from
+    the resident words (compress=False) and the JAX package's
+    make_fast_anchor_packed_fn over the same words, and the host LZ4
+    assembler turns each block's anchors into a block that decodes."""
+    rng = np.random.default_rng(41)
+    P = TARGET * 1024
+    tile = rng.integers(0, 256, 5000, np.uint8)
+    parts = [(0, np.resize(tile, P)),
+             (1, np.concatenate([rng.integers(0, 256, P // 2, np.uint8),
+                                 np.resize(tile[:777], P // 3)]))]
+    block = P // 2
+    got = {}
+    for compress in (True, False):
+        ix = pipeline.DevicePartIndexer(TARGET, "cpu", lanes=2,
+                                        compress=compress)
+        entry = ix.plan_hash(ix.submit_host(parts), keep_words=True)
+        got[compress] = ix.collect_compress(
+            ix.submit_compress(entry, block_bytes=block))
+        assert len(list(ix.retire(entry))) == 2
+    flat = np.zeros(2 * P, np.uint8)
+    flat[:P] = parts[0][1]
+    flat[P:P + len(parts[1][1])] = parts[1][1]
+    words = flat.view("<u4")
+    want = jpipeline.DevicePartIndexer.collect_compress(
+        jdm.make_fast_anchor_packed_fn(len(words), block // 4)(
+            jax.device_put(words)))
+    assert len(want) == 4
+    for a, b, w in zip(got[True], got[False], want, strict=True):
+        for x, y, z in zip(a, b, w):
+            np.testing.assert_array_equal(x, z)
+            np.testing.assert_array_equal(y, z)
+    for k, (pos, ref) in enumerate(got[True]):
+        src = flat[k * block:(k + 1) * block].tobytes()
+        keep = pos < len(src)
+        out = lz4.assemble_anchors(src, pos[keep], ref[keep])
+        assert lz4.decompress(out, len(src)) == src
+    assert len(got[True][0][0]) > 0
+
+
 def test_version_index_bit_identical_to_jax_host_and_device():
     """create_version_index(device="cpu") == the JAX package's
     create_version_index with xp=np and with xp=jnp, byte for byte."""
@@ -189,7 +231,7 @@ def test_cli_upsync_host_path_writes_the_hosts_index(tmp_path):
     (["pack", "--source-path", "a", "--target-path", "b.la", "--device"],
      NotImplementedError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
-      "--target-path", "b.lvi", "--device", "--hash-algorithm", "blake2"],
+      "--target-path", "b.lvi", "--device", "--hash-algorithm", "meow"],
      NotImplementedError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
       "--target-path", "b.lvi", "--device"], RuntimeError),
@@ -225,10 +267,13 @@ def test_require_refuses_cpu_tensors():
 
 
 def test_import_leaves_jax_out():
-    """tests/conftest.py imports jax in this process, so check in a fresh
-    interpreter."""
-    code = ("import sys; import longtail_tpu_torch, longtail_tpu_torch.api, "
-            "longtail_tpu_torch.cli; assert 'jax' not in sys.modules, "
+    """Every module of the port, imported in a fresh interpreter
+    (tests/conftest.py imports jax in this process)."""
+    code = ("import importlib, pkgutil, sys, longtail_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'longtail_tpu_torch.ops.zstd_device' in sys.modules\n"
+            "assert 'jax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith('jax'))")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

@@ -11,6 +11,7 @@ import torch
 jax = pytest.importorskip("jax")
 
 from longtail_tpu.ops import cdc  # noqa: E402
+from longtail_tpu.parallel import device_match as jdm  # noqa: E402
 from longtail_tpu.parallel import stage1 as jstage1  # noqa: E402
 from longtail_tpu.parallel.device_chunker import (  # noqa: E402
     ChunkerConfig as JChunkerConfig,
@@ -47,8 +48,10 @@ def _tiny():
 
 
 def _port_walk(flat, lengths, plan):
-    out = stage1.stage1(torch.from_numpy(flat), torch.from_numpy(lengths),
-                        stage1.hash_table("cpu"), plan)
+    out, bins = stage1.stage1(torch.from_numpy(flat),
+                              torch.from_numpy(lengths),
+                              stage1.hash_table("cpu"), plan)
+    assert bins is None
     return stage1.unpack_walk(out.numpy(), plan)
 
 
@@ -97,6 +100,45 @@ def test_scan_summaries_match_pallas_scan_kernel():
                       plan)
     for g, w in zip(got, want[:3]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w).reshape(-1))
+
+
+def test_scan_bins_match_bin_mins_and_pallas_scan():
+    """The scan's bins output on the tiny 8-lane batch: equal to
+    bin_mins_from_words over the batch's words (the XLA definition: each
+    gram's next word is the true next word of the flat batch, 0 after its
+    last), and to the Pallas scan kernel (interpret mode,
+    with_anchors=True) except at each Pallas tile's last bin, whose last
+    gram the Pallas kernel completes with its own tile's first word."""
+    plan, jplan, rows, lengths = _tiny()
+    flat = rows.reshape(-1)
+    *summaries, bins = stage1.scan(
+        torch.from_numpy(flat), torch.from_numpy(lengths),
+        stage1.hash_table("cpu"), plan, with_bins=True)
+    got = bins.numpy().view(np.uint32)
+    words = flat.view("<u4")
+    np.testing.assert_array_equal(
+        got, np.asarray(jdm.bin_mins_from_words(jax.device_put(words),
+                                                len(words))))
+    for a, b in zip(summaries, stage1.scan(
+            torch.from_numpy(flat), torch.from_numpy(lengths),
+            stage1.hash_table("cpu"), plan)):
+        assert torch.equal(a, b)
+    # the composition the pipeline runs: the same bins, the same walk
+    out, sbins = stage1.stage1(torch.from_numpy(flat),
+                               torch.from_numpy(lengths),
+                               stage1.hash_table("cpu"), plan, with_bins=True)
+    assert torch.equal(sbins, bins)
+    assert torch.equal(out, stage1.stage1(
+        torch.from_numpy(flat), torch.from_numpy(lengths),
+        stage1.hash_table("cpu"), plan)[0])
+    _, pbins, _ = jstage1._make_stage1_pallas(jplan, with_anchors=True)(
+        rows, lengths)
+    pbins = np.asarray(pbins).reshape(-1)
+    per_tile = jplan.tile_bytes // 256
+    tile_last = np.zeros(len(got), bool)
+    tile_last[per_tile - 1::per_tile] = True
+    assert len(got) == len(pbins) and tile_last.sum() == len(got) // per_tile
+    np.testing.assert_array_equal(got[~tile_last], pbins[~tile_last])
 
 
 def test_stage1_matches_pallas_interpret_and_xla():
