@@ -9,24 +9,30 @@ Phases, each printing a line; any failure raises and exits non-zero:
 2. build: compiles the kernels (csrc/*.cu, one nvcc per source, sm_90a);
 3. kernels: each of the six kernels against its plain PyTorch version on
    the card at the main path's shapes, demanding exact equality (all
-   integer), with CUDA-event times of both and the kernel's own device
-   time under torch.profiler: scan (bins output included)
-   and walk on one 64 MiB batch of 2 x 32 MiB parts, one ragged; pack,
-   BLAKE3 and BLAKE2 on every size class of that batch's chunks plus a
-   size-0 padding tail; the Huffman pack on the four streams of a
-   128 KiB zstd block of the structured data, a short single-stream
-   section and a skewed distribution;
-4. main path: the CLI's ``upsync --device`` of a synthetic asset tree
-   (--gib GiB, default 1) at the defaults (32 KiB target chunk, 64 MiB
-   batches, 8 MiB blocks), with zstd (the default) and with LZ4, and of
-   a smaller tree (--blake2-gib, default 32 MiB: the host BLAKE2 index
-   it is held to is the host package's numpy lane code, ~1 MB/s) with
-   BLAKE2 (zstd blocks); each kernel's launch count is set to 0 before
-   and read after each run and must be positive for every kernel of
-   that path; prints wall time, GB/s, compression ratio and the blocks
-   of each route;
-5. held to the host: each .lvi equals the host path's byte for byte, a
-   host downsync of each store reproduces the tree, sampled 8 MiB blocks
+   integer), with CUDA-event times of both, the kernel's own device
+   time under torch.profiler and its bound (the larger of its least
+   bytes over 3.35 TB/s and its integer operations over the card's
+   int32 rate): scan (bins output included) and walk on one 64 MiB batch
+   of 2 x 32 MiB parts, one ragged, the walk also on adversarial
+   summaries (a part of zeros, dense ambiguous candidates, lengths 0,
+   below min_size, ragged and whole, 64 lanes x 1 MiB, a c_pad cut to 8,
+   2 x 32 MiB of 256-byte-period content) against suffix_min +
+   walk_plain, each checked to reach the branch it exists for; pack, BLAKE3 and BLAKE2 on every size class
+   of that batch's chunks plus a size-0 padding tail; the Huffman pack
+   on the four streams of a 128 KiB zstd block of the structured data,
+   a short single-stream section and a skewed distribution;
+4. main path: the CLI's ``upsync`` of a synthetic asset tree (--gib GiB,
+   default 1) on the card, which it uses by default, at the defaults
+   (32 KiB target chunk, 64 MiB batches, 8 MiB blocks), with zstd (the
+   default, no --device flag) and with LZ4 (bare --device), and of a
+   smaller tree (--blake2-gib, default 32 MiB) with BLAKE2 (zstd blocks,
+   --device cuda); each kernel's launch count is set to 0 before and
+   read after each run and must be positive for every kernel of that
+   path; prints wall time, GB/s, compression ratio and the blocks of
+   each route;
+5. held to the host: each .lvi equals the port's host path's
+   (device=None) byte for byte, a downsync of each store through the
+   port's api.downsync reproduces the tree, sampled 8 MiB blocks
    recompressed with the port's codecs on the CPU equal the card's
    bytes, and the ratios stand beside host zstd level 3 and host LZ4;
 6. stage 4: DevicePartIndexer(compress=True) over a few batches, anchors
@@ -35,7 +41,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    BLAKE3 each launched in the compress=True batches; prints GB/s.
 
 The second-to-last line is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}}.  Imports no jax.
+{"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
+package (longtail_tpu).
 """
 
 from __future__ import annotations
@@ -53,8 +60,55 @@ import time
 import numpy as np
 
 
+# the card's peaks for the bounds: HBM3 of an H100 SXM (NVIDIA's data
+# sheet), and its int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# (NVIDIA's Hopper architecture white paper)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per 64-byte compression: 8 G functions of 14
+# operations (6 adds, 4 xors, 4 rotates) per round, and the output xors
+BLAKE3_OPS = 7 * 8 * 14 + 8
+BLAKE2_OPS = 10 * 8 * 14 + 16
+# ALU operations per scanned byte: the rolling update (2 funnel-shift
+# rotates and one 3-input xor, a LOP3) and the candidate test h % d ==
+# d - 1 (a multiply-high, a multiply-subtract and a compare); the table
+# lookup is a shared-memory load, not an ALU operation
+SCAN_OPS = 6
+SECTOR = 32             # bytes of the least read of global memory
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(n_bytes: float, int_ops: float) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes the
+    function must move over HBM and its integer operations over the
+    card's int32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def walk_bytes(lens, min1, min2, out) -> int:
+    """Least bytes of the walk: the lengths, min1 and the output in full;
+    min2 only in the 32-byte sectors of the segments whose min1 is a
+    candidate and cnt only in those whose min2 is, the only ones whose
+    values the walk's result depends on."""
+    import torch
+
+    from longtail_tpu_torch.parallel.stage1 import BIG
+
+    def sectors(mask) -> int:
+        first = torch.nonzero(mask).flatten() * 4 // SECTOR
+        return SECTOR * int(torch.unique(first).numel())
+
+    return (nbytes(lens, min1, out) + sectors(min1 != BIG)
+            + sectors(min2 != BIG))
 
 
 def structured_piece(rng, n_bytes: int) -> np.ndarray:
@@ -131,21 +185,23 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     each) after one warm-up: the kernel's own time, without the wrapper's
     host submission, which back-to-back CUDA events also see when the
     kernel is shorter than it.  The mean is over the launches the
-    profiler recorded, which may be fewer than reps."""
+    profiler recorded, which may be fewer than reps; a session that
+    recorded none is run again, up to three times."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    seen = sum(e.count for e in hits)
-    if not seen:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return sum(e.device_time_total for e in hits) / 1e3 / seen
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        seen = sum(e.count for e in hits)
+        if seen:
+            return sum(e.device_time_total for e in hits) / 1e3 / seen
+    raise AssertionError(f"the profiler saw no launch of {kernel}")
 
 
 def max_abs_err(got, want) -> int:
@@ -169,8 +225,7 @@ def hufpack_cases(rng, dev):
     and a skewed distribution (1-bit and 11-bit codes)."""
     import torch
 
-    from longtail_tpu_torch import _host
-    from longtail_tpu_torch.ops import device_entropy
+    from longtail_tpu_torch.ops import device_entropy, zstd_device, zstd_frame
     from longtail_tpu_torch.parallel.device_match import fast_block_anchors
 
     src = structured(rng, 8 << 20).tobytes()
@@ -178,7 +233,7 @@ def hufpack_cases(rng, dev):
     (apos, aref), = fast_block_anchors(
         words, len(src) // 4, max_offset_words=len(src) // 4,
         suppress_sampled_chains=False)
-    seqs = _host.sequences_from_anchors(src, apos, aref)
+    seqs = zstd_device.sequences_from_anchors(src, apos, aref)
     sections = [lits for _, _, lits in
                 device_entropy.literal_sections(src, seqs)]
     big = np.frombuffer(max(sections, key=len), np.uint8)
@@ -188,7 +243,7 @@ def hufpack_cases(rng, dev):
     cases = []
     for name, arr in (("128 KiB block", big), ("short section", big[:700]),
                       ("skewed", skew)):
-        _, cv, cl = _host.build_huffman(
+        _, cv, cl = zstd_frame.build_huffman(
             np.bincount(arr, minlength=256).tolist())
         n = len(arr)
         if n > 1023:
@@ -200,6 +255,121 @@ def hufpack_cases(rng, dev):
         cases.append((name, max(cl),
                       [torch.from_numpy(a).to(dev) for a in ins]))
     return cases
+
+
+def cut_c_pad(plan, c_pad: int):
+    """plan with its c_pad cut to c_pad: the walk's truncation case."""
+    import dataclasses
+
+    from longtail_tpu_torch.parallel import stage1
+
+    @dataclasses.dataclass(frozen=True)
+    class Cut(stage1.Stage1Plan):
+        @property
+        def c_pad(self):
+            return c_pad
+
+    return Cut(plan.cfg, plan.lanes, plan.part_bytes)
+
+
+def periodic_tile(rng, dev, cfg, table, period: int) -> np.ndarray:
+    """Random bytes of one period whose repetition holds a cut candidate
+    in every period (a few dozen draws at the default discriminator)."""
+    import torch
+
+    from longtail_tpu_torch.parallel import stage1
+
+    plan = stage1.Stage1Plan(cfg, 1, stage1.SCAN_TILE)
+    lens = torch.tensor([plan.part_bytes], dtype=torch.int32, device=dev)
+    while True:
+        tile = rng.integers(0, 256, period, dtype=np.uint8)
+        data = torch.from_numpy(np.tile(tile, plan.part_bytes // period))
+        if int(stage1.scan(data.to(dev), lens, table, plan)[2].sum()):
+            return tile
+
+
+def walk_cases(rng, dev, table) -> int:
+    """The walk kernel against suffix_min + walk_plain on adversarial
+    summaries, each from the scan of data made from rng, each checked to
+    reach the branch it exists for: a part of zeros (forced cuts only, in
+    shared memory), dense candidates with ambiguous lanes (a small
+    discriminator: parts past WALK_CAP states, on global scratch),
+    lengths 0, below min_size, ragged and whole, 64 lanes of 1 MiB, the
+    cut list truncated at c_pad (after candidate and forced cuts), and
+    2 x 32 MiB of content with a 256-byte period (two candidates in every
+    segment: the most states a part can hold, on global scratch).
+    Returns the largest max_abs_err."""
+    import torch
+
+    from longtail_tpu_torch.parallel import stage1
+    from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+
+    mib = 1 << 20
+    cfg = ChunkerConfig.from_target(32768)
+    dense = ChunkerConfig(48, 64, 256)
+    truncated = structured(rng, 4 * mib)
+    truncated[2 * mib:3 * mib] = 0
+    tile = periodic_tile(rng, dev, cfg, table, 256)
+    cases = (  # name, config, lanes, part bytes, data, lengths, c_pad
+        ("zeros", cfg, 2, 32 * mib, np.zeros(64 * mib, np.uint8),
+         [32 * mib, 32 * mib - 4096], None),
+        ("dense, ambiguous", dense, 2, mib,
+         rng.integers(0, 256, 2 * mib, dtype=np.uint8), [mib, mib - 777],
+         None),
+        ("lengths 0, < min, ragged, whole", cfg, 4, mib,
+         structured(rng, 4 * mib), [0, cfg.min_size - 1, mib - 4097, mib],
+         None),
+        ("64 lanes x 1 MiB", cfg, 64, mib, structured(rng, 64 * mib),
+         [mib] * 63 + [mib // 3], None),
+        ("c_pad 8", cfg, 4, mib, truncated, [mib, mib - 1, mib, 100], 8),
+        ("256-byte period", cfg, 2, 32 * mib,
+         np.tile(tile, 64 * mib // len(tile)), [32 * mib] * 2, None),
+    )
+    worst = 0
+    for name, c, lanes, part, data, lengths, c_pad in cases:
+        plan = stage1.Stage1Plan(c, lanes, part)
+        if c_pad is not None:
+            plan = cut_c_pad(plan, c_pad)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for b, n in enumerate(lengths):
+            data[b * part + n:(b + 1) * part] = 0
+        batch = torch.from_numpy(data).to(dev)
+        tab = table if c is cfg else stage1.hash_table(dev)
+        summ = stage1.scan(batch, lens, tab, plan)
+        got = stage1.walk(lens, *summ, plan)
+        want = stage1.walk_plain(lens, *summ,
+                                 stage1.suffix_min(summ[0], plan), plan)
+        err = max_abs_err([got], [want])
+        out = got.cpu().numpy()
+        n, amb = out[:, plan.c_pad], out[:, plan.c_pad + 1]
+        # the kernel's states per part: 0, then every min1 and min2 < BIG
+        states = 1 + sum((t.view(lanes, -1) != stage1.BIG).sum(1)
+                         for t in summ[:2]).cpu().numpy()
+        scratch = states + 1 > stage1.WALK_CAP
+        ms = cuda_ms(lambda: stage1.walk(lens, *summ, plan), 5)
+        log(f"walk {name}: {lanes} x {part >> 10} KiB, max_abs_err {err}, "
+            f"{int(n.sum())} cuts, {int(amb.sum())} ambiguous lanes, "
+            f"states per part up to {int(states.max())} ({int(scratch.sum())}"
+            f" parts on global scratch), {ms:.4f} ms by events")
+        mx = c.max_size
+        branch = {
+            "zeros": not scratch.any() and not amb.any() and all(
+                np.array_equal(out[b, :n[b]], np.minimum(
+                    np.arange(1, -(-L // mx) + 1) * mx, L))
+                for b, L in enumerate(lengths)),
+            "dense, ambiguous": amb.any() and scratch.any(),
+            "lengths 0, < min, ragged, whole": not scratch.any()
+                and n[0] == 0 and n[1] == 1 and out[1, 0] == lengths[1],
+            "64 lanes x 1 MiB": not scratch.any(),
+            "c_pad 8": n.tolist() == [8, 8, 8, 1] and np.array_equal(
+                out[2, :8], np.arange(1, 9) * mx),
+            "256-byte period": scratch.all()
+                and (states >= 2 * plan.segments_per_part).all(),
+        }[name]
+        if not branch:
+            raise AssertionError(f"walk case {name!r} missed its branch")
+        worst = max(worst, err)
+    return worst
 
 
 def check_kernels(seed: int) -> list:
@@ -229,16 +399,20 @@ def check_kernels(seed: int) -> list:
     table = stage1.hash_table(dev)
     rows = []
 
-    def row(name, src, rep, err, ms, plain_ms, dev_ms):
+    def row(name, src, rep, err, ms, plain_ms, dev_ms, bnd):
         log(f"kernel {name}: max_abs_err {err}, {ms:.4f} ms by CUDA events "
             f"around the wrapper, {dev_ms:.4f} ms of device time "
-            f"(plain PyTorch {plain_ms:.4f} ms)")
+            f"(plain PyTorch {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms by "
+            f"{bnd[1]})")
         if err != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version (max_abs_err {err})")
+        # no single PyTorch call computes any of the six functions
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "device_ms": dev_ms})
+                     "plain_ms": plain_ms, "device_ms": dev_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": None})
 
     # scan, with the bins output compared too; timed as the upsync path
     # runs it (no bins), the bins variant logged beside it
@@ -252,18 +426,27 @@ def check_kernels(seed: int) -> list:
         cuda_ms(lambda: stage1.scan(batch, lens, table, plan), 20),
         cuda_ms(lambda: stage1.scan_plain(batch, lens, table, plan), 2),
         device_ms(lambda: stage1.scan(batch, lens, table, plan), 20,
-                  "scan_kernel"))
+                  "scan_kernel"),
+        bound(nbytes(batch, lens, table, *got[:3]),
+              SCAN_OPS * batch.numel()))
     got = got[:3]
 
-    suf = stage1.suffix_min(got[0], plan)
-    wout = stage1.walk(lens, *got, suf, plan)
-    wplain = stage1.walk_plain(lens, *got, suf, plan)
-    row("walk", stage1.SOURCE, stage1.WALK_REPLACES,
-        max_abs_err([wout], [wplain]),
-        cuda_ms(lambda: stage1.walk(lens, *got, suf, plan), 5),
-        cuda_ms(lambda: stage1.walk_plain(lens, *got, suf, plan), 1),
-        device_ms(lambda: stage1.walk(lens, *got, suf, plan), 5,
-                  "walk_kernel"))
+    # the walk needs no suffix-min; its plain version walks with one
+    wout = stage1.walk(lens, *got, plan)
+    wplain = stage1.walk_plain(lens, *got, stage1.suffix_min(got[0], plan),
+                               plan)
+    werr = max(max_abs_err([wout], [wplain]), walk_cases(rng, dev, table))
+    row("walk", stage1.SOURCE, stage1.WALK_REPLACES, werr,
+        cuda_ms(lambda: stage1.walk(lens, *got, plan), 20),
+        cuda_ms(lambda: stage1.walk_plain(
+            lens, *got, stage1.suffix_min(got[0], plan), plan), 1),
+        device_ms(lambda: stage1.walk(lens, *got, plan), 20, "walk_kernel"),
+        bound(walk_bytes(lens, got[0], got[1], wout), 0))
+    log(f"stage 1 per 64 MiB batch (scan + walk): "
+        f"{cuda_ms(lambda: stage1.stage1(batch, lens, table, plan), 20):.4f}"
+        f" ms by events; suffix_min, which the card's walk no longer "
+        f"needs: {cuda_ms(lambda: stage1.suffix_min(got[0], plan), 20):.4f}"
+        f" ms")
 
     sizes, n, amb = stage1.unpack_walk(wout.cpu().numpy(), plan)
     log(f"batch: {n.tolist()} chunks per part, ambiguous {amb.tolist()}")
@@ -278,6 +461,8 @@ def check_kernels(seed: int) -> list:
     err = {"pack": 0, "blake3": 0, "blake2": 0}
     t = {k + s: 0.0 for k in ("pack", "blake3", "blake2")
          for s in ("", "_plain", "_device")}
+    # least bytes and integer operations of each function over the classes
+    work = {k: [0, 0] for k in ("pack", "blake3", "blake2")}
     for cls in np.unique(padded):
         idx = np.flatnonzero(padded == cls)
         tail = np.zeros(5, np.int64)                 # size-0 padding rows
@@ -294,6 +479,16 @@ def check_kernels(seed: int) -> list:
             lambda: pipeline.pack_plain(batch, st, sz, cls), 2)
         t["pack_device"] += device_ms(
             lambda: pipeline.pack(batch, st, sz, cls), 10, "pack_kernel")
+        szl = sz.to(torch.int64)
+        chunk_bytes = int(szl.sum())
+        work["pack"][0] += chunk_bytes + nbytes(st, sz, words)
+        blocks = torch.clamp((szl + 63) // 64, min=1)
+        leaves = torch.clamp((szl + 1023) // 1024, min=1)
+        rows_out = 8 * len(sz)                      # (lo, hi) per row
+        work["blake3"][0] += chunk_bytes + nbytes(sz) + rows_out
+        work["blake3"][1] += BLAKE3_OPS * int((blocks + leaves - 1).sum())
+        work["blake2"][0] += chunk_bytes + nbytes(sz) + rows_out
+        work["blake2"][1] += BLAKE2_OPS * int(blocks.sum())
         for name, dev_fn, plain_fn in (
                 ("blake3", blake3_kernel.hash_chunks_words_device,
                  blake3.hash_chunks_words),
@@ -312,12 +507,13 @@ def check_kernels(seed: int) -> list:
             ("blake3", blake3_kernel.SOURCE, blake3_kernel.REPLACES),
             ("blake2", blake2_kernel.SOURCE, blake2_kernel.REPLACES)):
         row(name, src, rep, err[name], t[name], t[name + "_plain"],
-            t[name + "_device"])
+            t[name + "_device"], bound(*work[name]))
 
-    herr, hms, hplain, hdev = 0, 0.0, 0.0, 0.0
+    herr, hms, hplain, hdev, hbytes = 0, 0.0, 0.0, 0.0, 0
     for name, max_len, ins in hufpack_cases(rng, dev):
-        e = max_abs_err(entropy_kernel.hufpack(*ins),
-                        entropy_kernel.hufpack_plain(*ins))
+        out = entropy_kernel.hufpack(*ins)
+        e = max_abs_err(out, entropy_kernel.hufpack_plain(*ins))
+        hbytes += nbytes(*ins, *out)
         ms = cuda_ms(lambda: entropy_kernel.hufpack(*ins), 20)
         pms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*ins), 5)
         dms = device_ms(lambda: entropy_kernel.hufpack(*ins), 20,
@@ -329,7 +525,7 @@ def check_kernels(seed: int) -> list:
         herr, hms, hplain, hdev = (max(herr, e), hms + ms, hplain + pms,
                                    hdev + dms)
     row("hufpack", entropy_kernel.SOURCE, entropy_kernel.REPLACES, herr,
-        hms, hplain, hdev)
+        hms, hplain, hdev, bound(hbytes, 0))
     return rows
 
 
@@ -360,9 +556,10 @@ def stored_blocks(store_dir: str):
     an FSBlockStore directory, as the compression store wrote them."""
     import struct
 
-    from longtail_tpu_torch import _host
+    from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
+    from longtail_tpu_torch.stores.storage import FSStorage
 
-    backing = _host.FSBlockStore(_host.FSStorage(), store_dir)
+    backing = FSBlockStore(FSStorage(), store_dir)
     for d, _, files in os.walk(os.path.join(store_dir, "chunks")):
         for f in sorted(files):
             if f.endswith(".lrb"):
@@ -417,7 +614,7 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
     them: the only path that runs the scan with its bins output."""
     import torch
 
-    from longtail_tpu_torch import _host
+    from longtail_tpu_torch.ops import lz4
     from longtail_tpu_torch.parallel import device_match
     from longtail_tpu_torch.parallel.pipeline import DevicePartIndexer
 
@@ -476,8 +673,8 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
                                      "words anchors")
             block = flat[k * blk:(k + 1) * blk].tobytes()
             keep = pos < len(block)
-            out = _host.lz4.assemble_anchors(block, pos[keep], ref[keep])
-            if _host.lz4.decompress(out, len(block)) != block:
+            out = lz4.assemble_anchors(block, pos[keep], ref[keep])
+            if lz4.decompress(out, len(block)) != block:
                 raise AssertionError("stage 4: an LZ4 block does not decode")
             blocks += 1
             n_anchors += len(pos)
@@ -501,17 +698,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from longtail_tpu_torch import _host, _kernels, cli
+    from longtail_tpu_torch import _kernels, api, cli
+    from longtail_tpu_torch.core.indexing import (
+        create_version_index,
+        get_files_recursively,
+    )
+    from longtail_tpu_torch.formats import constants as C
+    from longtail_tpu_torch.formats.version_index import VersionIndex
     from longtail_tpu_torch.ops import (
         blake2_kernel,
         blake3_kernel,
         compression_registry,
         entropy_kernel,
+        lz4,
+        zstd,
     )
     from longtail_tpu_torch.parallel import pipeline, stage1
     from longtail_tpu_torch.stores.compressblockstore import (
         CompressBlockStore,
     )
+    from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
+    from longtail_tpu_torch.stores.storage import FSStorage
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -529,8 +736,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = check_kernels(args.seed)
 
-    # 4. main path: the CLI's upsync --device, zstd (default), LZ4, BLAKE2
-    C = _host.constants
+    # 4. main path: the CLI's upsync on the card, zstd (default), LZ4,
+    # BLAKE2; the card is the default, and --device takes it bare or named
     wrappers = {"scan": stage1.scan, "walk": stage1.walk,
                 "pack": pipeline.pack,
                 "blake3": blake3_kernel.hash_chunks_words_device,
@@ -538,9 +745,9 @@ def main() -> int:
                 "hufpack": entropy_kernel.hufpack}
     paths = {  # name: (extra flags, kernels the path must launch, tree)
         "zstd": ([], ("scan", "walk", "pack", "blake3", "hufpack"), "src"),
-        "lz4": (["--compression-algorithm", "lz4"],
+        "lz4": (["--device", "--compression-algorithm", "lz4"],
                 ("scan", "walk", "pack", "blake3"), "src"),
-        "blake2": (["--hash-algorithm", "blake2"],
+        "blake2": (["--device", "cuda", "--hash-algorithm", "blake2"],
                    ("scan", "walk", "pack", "blake2", "hufpack"), "src_b2"),
     }
     tmp = tempfile.mkdtemp(prefix="lt_chip_smoke_")
@@ -552,7 +759,7 @@ def main() -> int:
                                            args.seed))
             log(f"tree: {trees[tree][1]} bytes under {path}")
         src = trees["src"][0]
-        fs = _host.FSStorage()
+        fs = FSStorage()
         launches = {}
         for name, (extra, need, tree) in paths.items():
             tree_dir, total = trees[tree]
@@ -560,7 +767,7 @@ def main() -> int:
                 w.LAUNCHES = 0
             stage1.repair_lane.REPAIRS = 0
             t0 = time.perf_counter()
-            rc = cli.main(["upsync", "--device", "--storage-uri",
+            rc = cli.main(["upsync", "--storage-uri",
                            os.path.join(tmp, f"store_{name}"),
                            "--source-path", tree_dir, "--target-path",
                            os.path.join(tmp, f"{name}.lvi"), *extra])
@@ -569,7 +776,7 @@ def main() -> int:
             counts = {k: w.LAUNCHES for k, w in wrappers.items()}
             summary = store_summary(os.path.join(tmp, f"store_{name}"),
                                     "lz4" if name == "lz4" else "zstd")
-            log(f"upsync --device {' '.join(extra) or '(zstd, blake3)'}: "
+            log(f"upsync {' '.join(extra) or '(zstd, blake3, the card)'}: "
                 f"rc {rc}, {wall:.3f} s, {total / wall / 1e9:.3f} GB/s, "
                 f"ratio {summary['raw'] / summary['stored']:.4f}; "
                 f"launches {counts}; ambiguous lanes repaired "
@@ -592,31 +799,29 @@ def main() -> int:
                  C.COMPRESSION_TYPE_ZSTD_DEFAULT)):
             lvi = open(os.path.join(tmp, f"{name}.lvi"), "rb").read()
             tree_dir = trees[paths[name][2]][0]
-            infos = _host.host_indexing.get_files_recursively(fs, tree_dir)
+            infos = get_files_recursively(fs, tree_dir)
             t0 = time.perf_counter()
-            host = _host.host_indexing.create_version_index(
+            host = create_version_index(
                 fs, tree_dir, infos, hash_id, C.DEFAULT_TARGET_CHUNK_SIZE,
                 asset_tags=np.full(infos.count, tag, np.uint32), workers=8,
-                xp=np)
+                device=None)
             t_host = time.perf_counter() - t0
             if lvi != host.to_bytes():
                 raise AssertionError(f"{name}: .lvi differs from the host "
                                      "path's")
             out = os.path.join(tmp, "out")
-            store = CompressBlockStore(_host.FSBlockStore(
+            store = CompressBlockStore(FSBlockStore(
                 fs, os.path.join(tmp, f"store_{name}")))
-            _host.host_api.downsync(store, fs, out,
-                                    _host.VersionIndex.from_bytes(lvi),
-                                    min_block_usage_percent=0)
+            api.downsync(store, fs, out, VersionIndex.from_bytes(lvi))
             log(f"{name}: .lvi byte-identical to the host path's "
                 f"({len(lvi)} bytes; host index {t_host:.3f} s); downsync: "
                 f"{same_tree(tree_dir, out)} files byte-identical")
             shutil.rmtree(out)
 
         for name, host_compress in (
-                ("zstd", lambda b: _host.zstd.compress(b, 3)),
-                ("lz4", _host.lz4.compress)):
-            store = CompressBlockStore(_host.FSBlockStore(
+                ("zstd", lambda b: zstd.compress(b, 3)),
+                ("lz4", lz4.compress)):
+            store = CompressBlockStore(FSBlockStore(
                 fs, os.path.join(tmp, f"store_{name}")))
             raw_total = dev_total = host_total = 0
             sampled = 0
@@ -646,8 +851,9 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if any(m == "jax" or m.startswith(("jax.", "longtail_tpu."))
+           or m == "longtail_tpu" for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """longtail-tpu on PyTorch and CUDA.
 
 The upsync chunk+hash data plane (HPCDC scan and cut walk, chunk pack,
-BLAKE3 tree hash) runs as hand-written CUDA kernels for Hopper
+BLAKE3 and BLAKE2 hashes) and the match search of the LZ4 and zstd block
+codecs run on the CUDA card, through hand-written kernels for Hopper
 (``csrc/``), each beside a plain PyTorch version of the same function.
-Host layers that are not ported yet come from the ``longtail_tpu``
-package through ``_host``; nothing here imports jax.
+The host layers (formats, stores, host codecs and hashers, dedup, diff,
+write and change, the native C helpers) are the package's own copies of
+the JAX package's; nothing here imports jax or ``longtail_tpu``.
 
-Entry points: ``api.upsync(..., device=...)`` and
-``python -m longtail_tpu_torch.cli upsync --device ...``.
+Entry points: ``api.upsync(...)`` (on the card by default; ``device="cpu"``
+for the plain versions, ``device=None`` for the host path),
+``api.downsync``, ``api.validate_version`` and
+``python -m longtail_tpu_torch.cli <command>``.
 """

@@ -10,8 +10,9 @@ the objects into ``build/longtail_tpu_torch/libltkernels.so`` (beside the
 package), with a C interface bound through ctypes.  It rebuilds when a
 source, or this file, is newer than the library.  The algorithm constants
 (BLAKE3 IV, message permutation and flags, BLAKE2s IV, SIGMA and
-parameter word, the HPCDC window, the anchor gram hash) reach the CUDA sources as ``-D`` macros
-taken from the Python modules, so the sources hold no copy of them.
+parameter word, the HPCDC window, the anchor gram hash, the walk's
+shared-memory state cap) reach the CUDA sources as ``-D`` macros taken
+from the Python modules, so the sources hold no copy of them.
 
 Every entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; the Python wrappers make the tensors'
@@ -29,7 +30,6 @@ import shutil
 import subprocess
 import threading
 
-from longtail_tpu_torch import _host
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -52,10 +52,10 @@ _SIGNATURES = {
     # bytes, lengths, table, min1, min2, cnt, bins (or NULL), n_bytes,
     # part_bytes, z, d, stream
     "lt_stage1_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _P],
-    # lengths, min1, min2, cnt, suf, out, n_parts, part_bytes,
-    # seg_per_part, log2(z), min_size, max_size, c_pad, stream
-    "lt_stage1_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _P],
+    # lengths, min1, min2, cnt, scratch32, scratch8, out, n_parts,
+    # part_bytes, seg_per_part, log2(z), min_size, max_size, c_pad, stream
+    "lt_stage1_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P],
     # words, n_words, starts, sizes, out, rows, row_words, stream
     "lt_pack": [_P, _LL, _P, _P, _P, _I, _I, _P],
     # words, lengths, out, rows, row_words, stream
@@ -73,14 +73,17 @@ def sources() -> list[str]:
 
 def defines() -> list[str]:
     """The algorithm constants as nvcc -D flags, from the Python modules."""
+    from longtail_tpu_torch.formats.constants import CHUNKER_WINDOW_SIZE
+    from longtail_tpu_torch.ops import blake2 as b2
+    from longtail_tpu_torch.ops import blake3 as b3
     from longtail_tpu_torch.parallel import device_match as dm
+    from longtail_tpu_torch.parallel import stage1
 
-    b3 = _host.host_blake3
     # one macro per value: nvcc splits a -D value at commas.  A BLAKE2s
     # SIGMA round is one value, its 16 indices packed 4 bits each, slot 0
     # lowest.
     sigma = [sum(int(x) << (4 * i) for i, x in enumerate(r))
-             for r in _host.BLAKE2_SIGMA]
+             for r in b2.SIGMA]
     return [
         *(f"-DLT_BLAKE3_IV{i}={int(x):#x}u" for i, x in enumerate(b3.IV)),
         *(f"-DLT_BLAKE3_PERM{i}={int(x)}" for i, x in enumerate(b3.PERM)),
@@ -91,14 +94,15 @@ def defines() -> list[str]:
         f"-DLT_BLAKE3_BLOCK_BYTES={int(b3.BLOCK_BYTES)}",
         f"-DLT_BLAKE3_LEAF_BYTES={int(b3.LEAF_BYTES)}",
         *(f"-DLT_BLAKE2_IV{i}={int(x):#x}u"
-          for i, x in enumerate(_host.BLAKE2_IV)),
+          for i, x in enumerate(b2.IV)),
         *(f"-DLT_BLAKE2_SIGMA{r}={v:#x}ull" for r, v in enumerate(sigma)),
-        f"-DLT_BLAKE2_PARAM0={int(_host.BLAKE2_PARAM0):#x}u",
-        f"-DLT_BLAKE2_BLOCK_BYTES={int(_host.BLAKE2_BLOCK_BYTES)}",
-        f"-DLT_HPCDC_WINDOW={int(_host.constants.CHUNKER_WINDOW_SIZE)}",
+        f"-DLT_BLAKE2_PARAM0={int(b2.PARAM0):#x}u",
+        f"-DLT_BLAKE2_BLOCK_BYTES={int(b2.BLOCK_BYTES)}",
+        f"-DLT_HPCDC_WINDOW={int(CHUNKER_WINDOW_SIZE)}",
         f"-DLT_GRAM_H0={dm.GRAM_H0:#x}u",
         f"-DLT_GRAM_H1={dm.GRAM_H1:#x}u",
         f"-DLT_BIN_WORDS={dm.BIN_WORDS}",
+        f"-DLT_WALK_CAP={stage1.WALK_CAP}",
     ]
 
 
@@ -122,11 +126,14 @@ def compile_command(nvcc: str, src: str, obj: str) -> list[str]:
 def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
-    from longtail_tpu_torch.parallel import device_match
+    from longtail_tpu_torch.formats import constants
+    from longtail_tpu_torch.ops import blake2, blake3
+    from longtail_tpu_torch.parallel import device_match, stage1
 
     # the sources, and the Python modules their -D constants come from
     deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh")) + [
-        __file__, device_match.__file__]
+        __file__, device_match.__file__, constants.__file__,
+        blake2.__file__, blake3.__file__, stage1.__file__]
     return os.path.getmtime(LIB_PATH) < max(os.path.getmtime(p) for p in deps)
 
 

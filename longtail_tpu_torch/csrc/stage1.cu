@@ -33,24 +33,49 @@
 // word as the next word of the tile's last gram; this kernel follows the
 // XLA definition instead.
 //
-// lt_stage1_walk replaces stage1.py _make_walk_kernel.  It runs the
-// sequential min/max walk (Longtail_HPCDCNextChunk semantics) of
-// stage1.py lane_step, one thread per part, over the segment summaries
-// and their per-part exclusive suffix-min `suf`.  A lane is flagged
-// ambiguous when a segment it consults holds 3+ candidates and both kept
-// ends precede the query; the host re-chunks such a lane exactly.
-//   Bound on the H100: latency.  Each cut is a chain of four dependent
-// global loads, and there are only B threads (2 at the default geometry),
-// so the walk takes ~(cuts per part) x (load latency).  Making it
-// parallel is later work.
-//
+// lt_stage1_walk replaces stage1.py _make_walk_kernel.  It computes what
+// the sequential min/max walk (Longtail_HPCDCNextChunk semantics) of
+// stage1.py lane_step, and the port's walk_plain, compute over the
+// segment summaries, bit for bit, without their per-part suffix-min.
+//   Bound on the H100: min1 is read once (4 bytes per segment, 512 KiB
+// per 64 MiB batch), min2 and cnt only in the sectors of the segments
+// that hold a candidate (~4% of them), and the output written once:
+// ~0.8 MB, ~0.25 us at 3.35 TB/s; the rest is integer control flow.  A
+// sequential walk (one thread per part, this kernel's first design) is
+// a chain of dependent global loads per cut (~0.24 us each, ~2,400
+// cuts per 32 MiB part).  This design makes the walk parallel over the
+// positions a cut can start from, one block of 1024 threads per part:
+//  1. Compact.  The next cut after s depends on s alone, and each cut is
+//     a summary candidate (min1/min2 of some segment, suf being the first
+//     min1 of a later segment), s + max_size (forced) or the length.  The
+//     block compacts 0 and every min1/min2 below kBig into a sorted list
+//     of states (part-local ends), marking the min2 of each segment with 3+
+//     candidates; "the first candidate end > q" of the summaries is then
+//     the first list entry > q, and the ambiguity test looks at the last
+//     entry <= q.  Warps take contiguous ranges of segments with 16
+//     coalesced loads in flight per lane and compact with ballots.
+//  2. One step per state, all states in parallel: the cuts the walk emits
+//     from a state until it stops on the next state (or at the length),
+//     with runs of forced cuts counted in closed form (k forced cuts of
+//     max_size through a candidate-free stretch).
+//  3. Path.  Pointer jumping from state 0 marks the states on the walk's
+//     path in ~log2(path length) rounds (after round k the states at
+//     distance < 2^k are marked); an exclusive scan of the marked states'
+//     cut counts gives each its output index, and each writes its cuts,
+//     stopping at c_pad as the sequential walk does.
+//   The lists live in dynamic shared memory when a part has at most
+// kWalkCap states (about 2,700 at the default geometry); a denser part
+// (a small discriminator, content with a short period) runs the same code
+// on global scratch, which the wrapper passes only where the geometry
+// admits more than kWalkCap states per part.
 // Output of the walk, per part b: out[b, 0:c_pad] = cut ends (0 past the
 // cut count), out[b, c_pad] = n_chunks, out[b, c_pad + 1] = ambiguous.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#if !defined(LT_HPCDC_WINDOW) || !defined(LT_GRAM_H0)
+#if !defined(LT_HPCDC_WINDOW) || !defined(LT_GRAM_H0) || !defined(LT_WALK_CAP)
 #error "build through longtail_tpu_torch/_kernels.py, which defines the algorithm constants"
 #endif
 
@@ -184,40 +209,250 @@ scan_kernel(const uint8_t* __restrict__ bytes,
   }
 }
 
-__global__ void walk_kernel(const int32_t* __restrict__ lengths,
-                            const int32_t* __restrict__ min1,
-                            const int32_t* __restrict__ min2,
-                            const int32_t* __restrict__ cnt,
-                            const int32_t* __restrict__ suf,
-                            int32_t* __restrict__ out, int n_parts,
-                            int part_bytes, int seg_per_part, int lgz,
-                            int min_size, int max_size, int c_pad) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_parts) return;
-  int32_t* ends = out + (long long)b * (c_pad + 2);
-  const int len = lengths[b];
-  const int off = b * part_bytes;           // part start in the batch
-  const long long seg0 = (long long)b * seg_per_part;
-  int s = 0, n = 0, amb = 0;
-  while (s < len && n < c_pad) {
-    const int q = s + min_size;             // first admissible end is > q
-    const int t = min(q >> lgz, seg_per_part - 1);
-    const long long g = seg0 + t;
-    const int qa = q + off;
-    const int32_t m1 = min1[g], m2 = min2[g], cn = cnt[g], sf = suf[g];
-    const int32_t in_seg = m1 > qa ? m1 : (m2 > qa ? m2 : kBig);
-    amb |= (cn >= 3) & (m2 <= qa) & (m1 <= qa);
-    const int e_cand = min(in_seg, sf) - off;
-    const int rem = len - s;
-    const int limit = rem > max_size ? s + max_size : len;
-    int e = min(e_cand > q ? e_cand : limit, limit);
-    if (rem <= min_size) e = len;
-    ends[n++] = e;
-    s = e;
+constexpr int kWalkThreads = 1024;
+constexpr int kWalkUnroll = 16;             // summary loads in flight per lane
+constexpr int kWalkCap = LT_WALK_CAP;       // states a part keeps in shared memory
+constexpr int kWalkSmem = kWalkCap * 17;    // V, J0, J1, C (4 bytes), M (1 byte)
+constexpr uint32_t kPos = 0x7fffffffu;      // a state's part-local end
+constexpr uint32_t kAmbFlag = 0x80000000u;  // the min2 of a segment with 3+ candidates
+static_assert(kWalkSmem + 1024 <= 232448, "shared memory of one block");
+constexpr int kMaxDevices = 64;
+std::atomic<bool> walk_smem_raised[kMaxDevices];  // per device, once
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+struct WalkPart {
+  const uint32_t* v;  // sorted states; index n is the terminal
+  int n, len, mn, mx, lgz, last_seg;
+};
+
+// The cuts the walk emits from state i until it stops on a state: returns
+// that state (n once the part's length is reached) and sets *count.  With
+// ends, the cuts go to ends[o + k] while o + k < c_pad, and the ambiguity
+// test of the queries behind them is ORed into *amb.
+__device__ int walk_step(const WalkPart& w, int i, int* count, int32_t* ends,
+                         int o, int c_pad, int* amb) {
+  int s = (int)(w.v[i] & kPos);
+  *count = 0;
+  if (s >= w.len) return w.n;
+  int lo = i + 1, hi = w.n;                 // the first state > s + min_size
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((int)(w.v[mid] & kPos) <= s + w.mn) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
-  for (int i = n; i < c_pad; ++i) ends[i] = 0;
-  ends[c_pad] = n;
-  ends[c_pad + 1] = amb;
+  int j = lo, emitted = 0;
+  for (;;) {
+    const int q = s + w.mn;                 // first admissible end is > q
+    while (j < w.n && (int)(w.v[j] & kPos) <= q) ++j;
+    // lane_step's test: the queried segment holds 3+ candidates and both
+    // kept ends are <= q, i.e. the last state <= q is its flagged min2
+    const uint32_t prev = w.v[j - 1];
+    const int a = (prev & kAmbFlag) != 0 &&
+                  (int)(((prev & kPos) - 1u) >> w.lgz) ==
+                      min(q >> w.lgz, w.last_seg);
+    const int rem = w.len - s;
+    const int v = j < w.n ? (int)(w.v[j] & kPos) : kBig;
+    const int limit = rem > w.mx ? s + w.mx : w.len;
+    int e = w.len, next = w.n, k = 0;       // one cut e, or k forced cuts
+    if (rem > w.mn && v <= limit) {
+      e = v;
+      next = j;
+    } else if (rem > w.mn && limit < w.len) {
+      // forced cuts s + mx, ..., s + k mx while the next state stays
+      // beyond reach and more than max_size remains
+      k = (min(v, w.len) - s - 1) / w.mx;
+    }
+    const int at = o + emitted;
+    if (ends != nullptr && at < c_pad) {
+      *amb |= a;
+      if (k == 0) {
+        ends[at] = e;
+      } else {
+        for (int t = 1; t <= k && at + t <= c_pad; ++t) {
+          ends[at + t - 1] = s + t * w.mx;
+        }
+      }
+    }
+    if (k == 0) {
+      *count = emitted + 1;
+      return next;
+    }
+    emitted += k;
+    s += k * w.mx;
+    if (ends != nullptr && o + emitted >= c_pad) {
+      *count = emitted;
+      return w.n;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWalkThreads)
+walk_kernel(const int32_t* __restrict__ lengths,
+            const int32_t* __restrict__ min1,
+            const int32_t* __restrict__ min2,
+            const int32_t* __restrict__ cnt, int32_t* scratch32,
+            uint8_t* scratch8, int32_t* __restrict__ out, int part_bytes,
+            int seg_per_part, int lgz, int min_size, int max_size,
+            int c_pad) {
+  extern __shared__ __align__(16) uint8_t walk_smem[];
+  __shared__ int warp_tot[32];
+
+  const unsigned full = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, n_warps = nt >> 5;
+  const int b = blockIdx.x;
+  const int off = b * part_bytes;           // part start in the batch
+  const int32_t* m1p = min1 + (long long)b * seg_per_part;
+  const int32_t* m2p = min2 + (long long)b * seg_per_part;
+  const int32_t* cnp = cnt + (long long)b * seg_per_part;
+
+  // 1. compact: warp w takes the segments [lo, hi), 32 x kWalkUnroll at a
+  // time; pass one counts the states, pass two writes them in order
+  const int per_warp = (seg_per_part + n_warps - 1) / n_warps;
+  const int lo = min(warp * per_warp, seg_per_part);
+  const int hi = min(lo + per_warp, seg_per_part);
+  int32_t m1[kWalkUnroll], m2[kWalkUnroll];
+  int mine = 0;
+  for (int base = lo; base < hi; base += 32 * kWalkUnroll) {
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      const int g = base + 32 * u + lane;
+      m1[u] = g < hi ? m1p[g] : kBig;
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      m2[u] = m1[u] != kBig ? m2p[base + 32 * u + lane] : kBig;
+      mine += (m1[u] != kBig) + (m2[u] != kBig);
+    }
+  }
+  mine = warp_sum(mine);
+  if (lane == 0) warp_tot[warp] = mine;
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int x = 0; x < n_warps; ++x) {
+    before += x < warp ? warp_tot[x] : 0;
+    total += warp_tot[x];
+  }
+  const int n = 1 + total;                  // state 0 is the part's start
+
+  uint32_t* V;
+  int32_t *J0, *J1, *C;
+  uint8_t* M;
+  if (n + 1 <= kWalkCap) {
+    V = reinterpret_cast<uint32_t*>(walk_smem);
+    J0 = reinterpret_cast<int32_t*>(V + kWalkCap);
+    J1 = J0 + kWalkCap;
+    C = J1 + kWalkCap;
+    M = reinterpret_cast<uint8_t*>(C + kWalkCap);
+  } else {
+    const long long stride = 2LL * seg_per_part + 2;
+    V = reinterpret_cast<uint32_t*>(scratch32 + 4 * stride * b);
+    J0 = reinterpret_cast<int32_t*>(V + stride);
+    J1 = J0 + stride;
+    C = J1 + stride;
+    M = scratch8 + stride * b;
+  }
+
+  const unsigned lower = (1u << lane) - 1u;
+  int at = 1 + before;
+  for (int base = lo; base < hi; base += 32 * kWalkUnroll) {
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      const int g = base + 32 * u + lane;
+      m1[u] = g < hi ? m1p[g] : kBig;
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      m2[u] = m1[u] != kBig ? m2p[base + 32 * u + lane] : kBig;
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkUnroll; ++u) {
+      const unsigned b1 = __ballot_sync(full, m1[u] != kBig);
+      const unsigned b2 = __ballot_sync(full, m2[u] != kBig);
+      const int pos = at + __popc(b1 & lower) + __popc(b2 & lower);
+      if (m1[u] != kBig) V[pos] = (uint32_t)(m1[u] - off);
+      if (m2[u] != kBig) {
+        const bool amb3 = cnp[base + 32 * u + lane] >= 3;
+        V[pos + 1] = (uint32_t)(m2[u] - off) | (amb3 ? kAmbFlag : 0u);
+      }
+      at += __popc(b1) + __popc(b2);
+    }
+  }
+  if (tid == 0) V[0] = 0u;
+  __syncthreads();
+
+  // 2. every state's step: J0 = the next state, C = its cuts
+  const WalkPart w{V, n, lengths[b], min_size, max_size, lgz,
+                   seg_per_part - 1};
+  for (int i = tid; i <= n; i += nt) {
+    int c = 0;
+    J0[i] = i < n ? walk_step(w, i, &c, nullptr, 0, 0, nullptr) : n;
+    C[i] = c;
+    M[i] = i == 0;
+  }
+  __syncthreads();
+
+  // 3. mark the path of state 0: before a round with cur = next^(2^r), the
+  // states at distance < 2^r are marked; it marks those below 2^(r+1).
+  // A mark read late only delays a mark of the same path (marks are never
+  // wrong), so the rounds need no other ordering.
+  int32_t* cur = J0;
+  int32_t* nxt = J1;
+  while (cur[0] != n) {
+    for (int i = tid; i <= n; i += nt) {
+      const int32_t j = cur[i];
+      if (M[i]) M[j] = 1;
+      nxt[i] = cur[j];
+    }
+    __syncthreads();
+    int32_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // 4. output index of each marked state (exclusive scan of C over the
+  // marked states, in order: the path's states increase), then its cuts
+  const int per = (n + nt - 1) / nt;
+  const int i0 = min(tid * per, n), i1 = min(i0 + per, n);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += M[i] ? C[i] : 0;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(full, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int o = incl - sum, cuts = 0;
+  for (int x = 0; x < n_warps; ++x) {
+    o += x < warp ? warp_tot[x] : 0;
+    cuts += warp_tot[x];
+  }
+  int32_t* ends = out + (long long)b * (c_pad + 2);
+  int amb = 0;
+  for (int i = i0; i < i1 && o < c_pad; ++i) {
+    if (M[i] && C[i] > 0) {
+      int c;
+      walk_step(w, i, &c, ends, o, c_pad, &amb);
+      o += C[i];
+    }
+  }
+  const int n_chunks = min(cuts, c_pad);
+  for (int i = n_chunks + tid; i < c_pad; i += nt) ends[i] = 0;
+  amb = __syncthreads_or(amb);
+  if (tid == 0) {
+    ends[c_pad] = n_chunks;
+    ends[c_pad + 1] = amb;
+  }
 }
 
 }  // namespace
@@ -236,17 +471,30 @@ extern "C" int lt_stage1_scan(const void* bytes, const void* lengths,
   return (int)cudaGetLastError();
 }
 
+// scratch32 / scratch8: the global fallback of a dense part, n_parts x
+// walk_stride int32 x 4 and u8 x 1 (stage1.py walk_scratch), or NULL
+// where 2 * seg_per_part + 2 <= kWalkCap
 extern "C" int lt_stage1_walk(const void* lengths, const void* min1,
                               const void* min2, const void* cnt,
-                              const void* suf, void* out, int n_parts,
-                              int part_bytes, int seg_per_part, int lgz,
-                              int min_size, int max_size, int c_pad,
+                              void* scratch32, void* scratch8, void* out,
+                              int n_parts, int part_bytes, int seg_per_part,
+                              int lgz, int min_size, int max_size, int c_pad,
                               void* stream) {
-  const int threads = 32;
-  const unsigned blocks = (unsigned)((n_parts + threads - 1) / threads);
-  walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices || !walk_smem_raised[dev].load()) {
+    e = cudaFuncSetAttribute(walk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWalkSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) walk_smem_raised[dev].store(true);
+  }
+  walk_kernel<<<(unsigned)n_parts, kWalkThreads, kWalkSmem,
+                (cudaStream_t)stream>>>(
       (const int32_t*)lengths, (const int32_t*)min1, (const int32_t*)min2,
-      (const int32_t*)cnt, (const int32_t*)suf, (int32_t*)out, n_parts,
-      part_bytes, seg_per_part, lgz, min_size, max_size, c_pad);
+      (const int32_t*)cnt, (int32_t*)scratch32, (uint8_t*)scratch8,
+      (int32_t*)out, part_bytes, seg_per_part, lgz, min_size, max_size,
+      c_pad);
   return (int)cudaGetLastError();
 }

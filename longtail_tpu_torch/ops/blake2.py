@@ -1,8 +1,10 @@
 """BLAKE2s-64 constants and the plain PyTorch batched chunk hash.
 
-The constants are the host module's own values (``longtail_tpu/ops/
-blake2.py``).  ``hash_chunks_words`` is ``longtail_tpu.ops.blake2.
-hash_chunks_words`` in torch lane math: every row is a lane, and its
+The constants are the port's copy of ``longtail_tpu/ops/blake2.py``'s
+(BLAKE2s at digest size 8, lib/blake2/longtail_blake2.c:43; the host
+hasher, ``hash_registry.Blake2Hasher``, hashes with ``hashlib``).
+``hash_chunks_words`` is ``longtail_tpu.ops.blake2.hash_chunks_words`` in
+torch lane math: every row is a lane, and its
 64-byte blocks compress one after another as masked lane updates.  torch
 has no unsigned 32-bit arithmetic, so words ride as int64 masked to 32
 bits.
@@ -19,13 +21,30 @@ from __future__ import annotations
 
 import torch
 
-from longtail_tpu_torch import _host
 from longtail_tpu_torch.ops.blake3 import to_int32
 
-IV = _host.BLAKE2_IV
-SIGMA = _host.BLAKE2_SIGMA
-PARAM0 = _host.BLAKE2_PARAM0
-BLOCK_BYTES = _host.BLAKE2_BLOCK_BYTES
+IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+      0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+
+SIGMA = (
+    (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15),
+    (14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3),
+    (11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4),
+    (7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8),
+    (9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13),
+    (2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9),
+    (12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11),
+    (13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10),
+    (6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5),
+    (10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0),
+)
+
+BLOCK_BYTES = 64
+DIGEST_BYTES = 8
+
+# param block word 0: digest_length | (key_length << 8) | (fanout << 16)
+# | (depth << 24), fanout = depth = 1 (sequential mode)
+PARAM0 = DIGEST_BYTES | (1 << 16) | (1 << 24)
 
 _M = 0xFFFFFFFF
 

@@ -1,58 +1,145 @@
-"""BLAKE3 constants and the plain PyTorch batched chunk hash.
+"""BLAKE3: the host hasher and the plain PyTorch batched chunk hash.
 
-The constants are the host module's own values (``longtail_tpu/ops/
-blake3.py``), so the two packages share one source of truth.
-``hash_chunks_words`` is ``longtail_tpu.ops.blake3.hash_chunks_words`` in
-torch lane math: every 1 KiB leaf of every row is a lane, the 16 block
+The host half is the port's copy of ``longtail_tpu/ops/blake3.py``
+without its jax branches: the constants, the scalar oracle (``blake3``,
+``hash64``), ``hash_chunks`` (host rows in, u64 digests out) and the
+native batch path (``hash64_ranges``).  The reference wraps upstream
+BLAKE3 and takes the first 8 bytes of the digest as the 64-bit
+chunk/content hash (lib/blake3/longtail_blake3.c:81-102).
+
+``hash_chunks_words`` is the JAX package's batched lane form in torch
+lane math: every 1 KiB leaf of every row is a lane, the 16 block
 compressions run as masked lane updates and the tree merges adjacent
 pairs level by level (an odd tail carries up).  torch has no unsigned
-32-bit arithmetic, so words ride as int64 masked to 32 bits.
-
-It is the plain version of the CUDA kernel in ``blake3_kernel.py`` and has
-its contract: words ``(rows, padded/4)`` int32, little-endian and zero
-past each row's length, with a power-of-two leaf count per row; lengths
+32-bit arithmetic, so words ride as int64 masked to 32 bits.  It is the
+plain version of the CUDA kernel in ``blake3_kernel.py`` and has its
+contract: words ``(rows, padded/4)`` int32, little-endian and zero past
+each row's length, with a power-of-two leaf count per row; lengths
 ``(rows,)``; returns ``(lo, hi)``, each ``(rows,)`` int32 holding the u32
-digest words.
+digest words.  The host ``hash_chunks`` runs it on the CPU.
 """
 
 from __future__ import annotations
 
+import struct
+
+import numpy as np
 import torch
 
-from longtail_tpu_torch import _host
+IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+      0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
 
-_b3 = _host.host_blake3
-IV = _b3.IV
-PERM = _b3.PERM
-CHUNK_START = _b3.CHUNK_START
-CHUNK_END = _b3.CHUNK_END
-PARENT = _b3.PARENT
-ROOT = _b3.ROOT
-BLOCK_BYTES = _b3.BLOCK_BYTES
-LEAF_BYTES = _b3.LEAF_BYTES
+# Message word permutation applied between rounds.
+PERM = (2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8)
+
+CHUNK_START = 1 << 0
+CHUNK_END = 1 << 1
+PARENT = 1 << 2
+ROOT = 1 << 3
+
+BLOCK_BYTES = 64
+LEAF_BYTES = 1024  # BLAKE3 "chunk" (leaf) size; we say "leaf" to avoid
+                   # clashing with longtail's CDC chunks.
+
+_MASK32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Scalar oracle (python ints) — used for small host-side inputs (path hashes,
+# hash-of-hashes) and as the conformance oracle for the batched versions.
+# ---------------------------------------------------------------------------
+
+def _rotr(x: int, n: int) -> int:
+    return ((x >> n) | (x << (32 - n))) & _MASK32
+
+
+def _g(v: list, a: int, b: int, c: int, d: int, x: int, y: int) -> None:
+    v[a] = (v[a] + v[b] + x) & _MASK32
+    v[d] = _rotr(v[d] ^ v[a], 16)
+    v[c] = (v[c] + v[d]) & _MASK32
+    v[b] = _rotr(v[b] ^ v[c], 12)
+    v[a] = (v[a] + v[b] + y) & _MASK32
+    v[d] = _rotr(v[d] ^ v[a], 8)
+    v[c] = (v[c] + v[d]) & _MASK32
+    v[b] = _rotr(v[b] ^ v[c], 7)
+
+
+def _compress(h, m, t: int, b: int, flags: int) -> list:
+    v = list(h[:8]) + list(IV[:4]) + [t & _MASK32, (t >> 32) & _MASK32, b, flags]
+    m = list(m)
+    for r in range(7):
+        _g(v, 0, 4, 8, 12, m[0], m[1])
+        _g(v, 1, 5, 9, 13, m[2], m[3])
+        _g(v, 2, 6, 10, 14, m[4], m[5])
+        _g(v, 3, 7, 11, 15, m[6], m[7])
+        _g(v, 0, 5, 10, 15, m[8], m[9])
+        _g(v, 1, 6, 11, 12, m[10], m[11])
+        _g(v, 2, 7, 8, 13, m[12], m[13])
+        _g(v, 3, 4, 9, 14, m[14], m[15])
+        if r < 6:
+            m = [m[p] for p in PERM]
+    return [(v[i] ^ v[i + 8]) & _MASK32 for i in range(8)] + \
+           [(v[i + 8] ^ h[i]) & _MASK32 for i in range(8)]
+
+
+def _block_words(block: bytes) -> tuple:
+    return struct.unpack("<16I", block + b"\0" * (BLOCK_BYTES - len(block)))
+
+
+def _leaf_output(data: bytes, counter: int, is_root: bool) -> list:
+    h = list(IV)
+    n_blocks = max(1, (len(data) + BLOCK_BYTES - 1) // BLOCK_BYTES)
+    out = None
+    for i in range(n_blocks):
+        blk = data[i * BLOCK_BYTES:(i + 1) * BLOCK_BYTES]
+        flags = (CHUNK_START if i == 0 else 0) | \
+                (CHUNK_END if i == n_blocks - 1 else 0)
+        if is_root and i == n_blocks - 1:
+            flags |= ROOT
+        out = _compress(h, _block_words(blk), counter, len(blk), flags)
+        h = out[:8]
+    return out
+
+
+def _parent_output(left_cv, right_cv, is_root: bool) -> list:
+    return _compress(list(IV), list(left_cv) + list(right_cv), 0, BLOCK_BYTES,
+                     PARENT | (ROOT if is_root else 0))
+
+
+def _subtree(data: bytes, counter: int, is_root: bool) -> list:
+    n_leaves = max(1, (len(data) + LEAF_BYTES - 1) // LEAF_BYTES)
+    if n_leaves == 1:
+        return _leaf_output(data, counter, is_root)
+    # left subtree takes the largest power of two of leaves < n_leaves
+    p = 1
+    while p * 2 < n_leaves:
+        p *= 2
+    left = _subtree(data[:p * LEAF_BYTES], counter, False)[:8]
+    right = _subtree(data[p * LEAF_BYTES:], counter + p, False)[:8]
+    return _parent_output(left, right, is_root)
+
+
+def blake3(data: bytes, out_len: int = 32) -> bytes:
+    """Full BLAKE3 digest (default 32 bytes; extendable up to 64 here)."""
+    out = _subtree(data, 0, True)
+    return struct.pack("<16I", *out)[:out_len]
+
+
+def hash64(data: bytes) -> int:
+    """The longtail 64-bit hash: first 8 digest bytes as little-endian uint64
+    (lib/blake3/longtail_blake3.c:100)."""
+    out = _subtree(data, 0, True)
+    return out[0] | (out[1] << 32)
+
 
 _M = 0xFFFFFFFF
 _LEAF_WORDS = LEAF_BYTES // 4
 _BLOCKS_PER_LEAF = LEAF_BYTES // BLOCK_BYTES
 
 
-def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & _M
-
-
-def _g(v, a, b, c, d, x, y):
-    v[a] = (v[a] + v[b] + x) & _M
-    v[d] = _rotr(v[d] ^ v[a], 16)
-    v[c] = (v[c] + v[d]) & _M
-    v[b] = _rotr(v[b] ^ v[c], 12)
-    v[a] = (v[a] + v[b] + y) & _M
-    v[d] = _rotr(v[d] ^ v[a], 8)
-    v[c] = (v[c] + v[d]) & _M
-    v[b] = _rotr(v[b] ^ v[c], 7)
-
-
-def _compress(h, m, counter, block_len, flags):
-    """First 8 output words of one compression over int64 lanes."""
+def _compress_lanes(h, m, counter, block_len, flags):
+    """First 8 output words of one compression over int64 lanes (``_g``
+    is the scalar oracle's: the same expressions hold for tensors)."""
     z = torch.zeros_like(h[0])
     v = list(h) + [z + IV[i] for i in range(4)] + \
         [z + counter, z, z + block_len, z + flags]
@@ -113,7 +200,7 @@ def hash_chunks_words(words: torch.Tensor, lengths: torch.Tensor):
         flags = (CHUNK_START if k == 0 else 0) \
             | torch.where(last, CHUNK_END, 0) \
             | torch.where(last & root, ROOT, 0)
-        cv = _compress(h, m, counter, blk_len, flags)
+        cv = _compress_lanes(h, m, counter, blk_len, flags)
         active = n_blocks > k
         h = [torch.where(active, cv[i], h[i]) for i in range(8)]
 
@@ -129,9 +216,71 @@ def hash_chunks_words(words: torch.Tensor, lengths: torch.Tensor):
         has_right = 2 * j + 1 < count[:, None]
         is_root = (count[:, None] == 2) & (j == 0)
         iv = [torch.full_like(left[0], IV[i]) for i in range(8)]
-        cv = _compress(iv, left + right, 0, BLOCK_BYTES,
+        cv = _compress_lanes(iv, left + right, 0, BLOCK_BYTES,
                        PARENT | torch.where(is_root, ROOT, 0))
         cvs = [torch.where(has_right, cv[i], left[i]) for i in range(8)]
         count = (count + 1) // 2
         width = half
     return to_int32(cvs[0][:, 0]), to_int32(cvs[1][:, 0])
+
+def hash_chunks(data_u8, lengths) -> np.ndarray:
+    """Batched host hashing: (lanes, padded) uint8 rows, zero past each
+    lane's length, padded a power-of-two count of 1 KiB leaves, and
+    (lanes,) lengths -> (lanes,) uint64 digests, through
+    ``hash_chunks_words`` on the CPU."""
+    data_u8 = np.ascontiguousarray(data_u8, dtype=np.uint8)
+    words = torch.from_numpy(data_u8.view("<i4"))
+    lo, hi = hash_chunks_words(words, torch.from_numpy(
+        np.asarray(lengths, dtype=np.int64)))
+    lo = lo.numpy().view(np.uint32).astype(np.uint64)
+    hi = hi.numpy().view(np.uint32).astype(np.uint64)
+    return lo | (hi << np.uint64(32))
+
+
+# ---------------------------------------------------------------------------
+# native host fast path (native/blake3_hash.c): the from-spec
+# C implementation, cross-checked against this module's KAT-verified oracle.
+# ---------------------------------------------------------------------------
+
+_native_lib = None
+
+
+def _native():
+    """Bind the native hasher once; False caches a failed probe."""
+    global _native_lib
+    if _native_lib is None:
+        try:
+            import ctypes
+
+            from longtail_tpu_torch import native
+            lib = native.load("blake3_hash", ["blake3_hash.c"])
+            if lib is not None:
+                lib.lt_blake3_hash64.restype = None
+                lib.lt_blake3_hash64.argtypes = [
+                    ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
+                lib.lt_blake3_hash64_batch.restype = None
+                lib.lt_blake3_hash64_batch.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_long, ctypes.c_void_p]
+            _native_lib = lib if lib is not None else False
+        except Exception:
+            _native_lib = False
+    return _native_lib or None
+
+
+def hash64_ranges(base_u8: np.ndarray, offsets: np.ndarray,
+                  sizes: np.ndarray) -> np.ndarray | None:
+    """Hash chunks [offsets[i], offsets[i]+sizes[i]) of base_u8 natively;
+    None when the native library is unavailable (caller falls back)."""
+    lib = _native()
+    if lib is None:
+        return None
+    base_u8 = np.ascontiguousarray(base_u8, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    sizes = np.ascontiguousarray(sizes, dtype=np.int64)
+    out = np.empty(len(sizes), dtype=np.uint64)
+    if len(sizes):
+        lib.lt_blake3_hash64_batch(
+            base_u8.ctypes.data, offsets.ctypes.data, sizes.ctypes.data,
+            len(sizes), out.ctypes.data)
+    return out

@@ -7,7 +7,7 @@ Division of labour, as in the JAX package:
   the literals over a bounded strided sample (plain ``torch.bincount``;
   the JAX package left it to XLA too).
 - **Table build on the host**: the length-limited canonical Huffman code
-  of ``zstd_frame.build_huffman`` (through ``_host``), the code the
+  of ``zstd_frame.build_huffman`` (``ops/zstd_frame.py``), the code the
   from-spec frame codec uses, so the streams stay upstream-decodable.
 - **Bit pack on the device** (``ops/entropy_kernel.hufpack``, kernel 5):
   the backward Huffman bitstream of each stream.
@@ -26,11 +26,10 @@ import struct
 import numpy as np
 import torch
 
-from longtail_tpu_torch import _host
+from longtail_tpu_torch.ops import zstd_frame
+from longtail_tpu_torch.ops.zstd_frame import BLOCK_MAX, ZstdError
 from longtail_tpu_torch.ops.entropy_kernel import hufpack, pack_code_table
 
-BLOCK_MAX = _host.BLOCK_MAX
-ZstdError = _host.ZstdError
 
 _HIST_SAMPLE = 1 << 16     # histogram sample cap (64 KiB)
 
@@ -78,7 +77,7 @@ def encode_literals_device(lits: bytes, device) -> bytes:
     """Literals section with the Huffman stage on ``device``,
     byte-compatible with zstd_frame._encode_literals."""
     n = len(lits)
-    hdr = _host._pack_literals_header
+    hdr = zstd_frame._pack_literals_header
     if n == 0:
         return hdr(0, 0, None, False)
     if n >= 2 and lits.count(lits[0]) == n:
@@ -95,12 +94,12 @@ def encode_literals_device(lits: bytes, device) -> bytes:
         for s in present:
             if freqs[s] == 0:
                 freqs[s] = 1
-    built = _host.build_huffman(freqs)
+    built = zstd_frame.build_huffman(freqs)
     if built is None:
         return raw
     weights, code_val, code_len = built
     try:
-        tree_desc = _host.write_huffman_weights(weights[: len(weights) - 1])
+        tree_desc = zstd_frame.write_huffman_weights(weights[:-1])
     except ZstdError:
         return raw
     four = n > 1023
@@ -207,7 +206,7 @@ def frame_from_sequences(src: bytes, seq_rows, device) -> bytes:
     stage on ``device``.  Decodable by upstream zstd and
     ``zstd_frame.decompress``."""
     n = len(src)
-    out = bytearray(_host.MAGIC.to_bytes(4, "little"))
+    out = bytearray(zstd_frame.MAGIC.to_bytes(4, "little"))
     if n <= 255:
         out.append((0 << 6) | (1 << 5))
         out.append(n)
@@ -228,7 +227,7 @@ def frame_from_sequences(src: bytes, seq_rows, device) -> bytes:
         rep_try = list(rep)
         try:
             payload = encode_literals_device(lits, device) + \
-                _host._encode_sequences(seqs, rep_try)
+                zstd_frame._encode_sequences(seqs, rep_try)
         except ZstdError:
             payload = None
         if payload is not None and len(payload) < blen:

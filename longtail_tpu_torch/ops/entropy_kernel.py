@@ -19,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from longtail_tpu_torch import _host, _kernels
+from longtail_tpu_torch import _kernels
+from longtail_tpu_torch.ops.zstd_frame import MAX_HUF_BITS
 
-MAX_HUF_BITS = _host.MAX_HUF_BITS
 
 SOURCE = "longtail_tpu_torch/csrc/hufpack.cu"
 REPLACES = "longtail_tpu/ops/entropy_kernel.py:120"

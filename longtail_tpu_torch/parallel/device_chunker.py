@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from longtail_tpu_torch import _host
+from longtail_tpu_torch.formats.constants import chunker_params_from_target
+from longtail_tpu_torch.ops.cdc import discriminator_from_avg
 
 _LEAF = 1024
 
@@ -23,13 +24,13 @@ class ChunkerConfig:
 
     @classmethod
     def from_target(cls, target_chunk_size: int) -> "ChunkerConfig":
-        mn, av, mx = _host.constants.chunker_params_from_target(
+        mn, av, mx = chunker_params_from_target(
             target_chunk_size)
         return cls(mn, av, mx)
 
     @property
     def discriminator(self) -> int:
-        return _host.cdc.discriminator_from_avg(float(self.avg_size))
+        return discriminator_from_avg(float(self.avg_size))
 
     @property
     def padded_chunk(self) -> int:

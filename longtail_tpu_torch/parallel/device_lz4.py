@@ -3,7 +3,7 @@ the host's LZ4 assembly — port of ``longtail_tpu/parallel/device_lz4.py``.
 
 The match search (``parallel/device_match.anchor_rows``, three batched
 row sorts) runs where the words lie; the byte-level LZ4 stream is
-assembled on the host by the native walk behind ``_host.lz4``
+assembled on the host by the native walk of ``ops/lz4.py``
 (``assemble_anchors``), which memcmp-validates and byte-extends every
 anchor, so the device output is a hint, never a correctness dependency.
 Outputs are standard LZ4 blocks.
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from longtail_tpu_torch import _host
+from longtail_tpu_torch.ops import lz4
 from longtail_tpu_torch.parallel.device_match import (
     ROW_WORDS,
     collect_anchors,
@@ -48,6 +48,6 @@ def compress_block(src: bytes, device) -> bytes:
     Blocks under one row (64 KiB) take the host compressor, as in the
     JAX package."""
     if len(src) < ROW_BYTES:
-        return _host.lz4.compress(src)
+        return lz4.compress(src)
     pos, ref = block_anchors(src, device)
-    return _host.lz4.assemble_anchors(src, pos, ref)
+    return lz4.assemble_anchors(src, pos, ref)

@@ -10,12 +10,14 @@ parts of ``part_bytes`` each, laid end to end in one uint8 tensor.
   (absolute in the batch) and the candidate count.  With ``with_bins``
   the same pass also yields the fast compression tier's anchor bin-mins
   (``device_match.bin_mins_from_words`` over the batch's words).
-- ``suffix_min`` gives each segment the smallest ``min1`` of the later
-  segments of its part (plain torch, as the JAX package does it in XLA).
 - ``walk`` (kernel lt_stage1_walk, plain ``walk_plain``) resolves the
   min/max cut constraints per part over those summaries, giving
   ``(ends, n_chunks, ambiguous)`` per part, packed in one int32 tensor
   ``(lanes, c_pad + 2)`` so that one device-to-host copy fetches it.
+  The plain version walks each part in order with ``suffix_min`` (each
+  segment's smallest ``min1`` of the later segments of its part, as the
+  JAX package computes it in XLA); the kernel compacts the candidates
+  and walks all of them in parallel, and needs no suffix-min.
 
 The summaries decide "first candidate end > q" exactly unless a segment
 holds 3+ candidates and both kept ends precede the query; such a lane is
@@ -32,16 +34,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from longtail_tpu_torch import _host, _kernels
+from longtail_tpu_torch import _kernels
+from longtail_tpu_torch.formats.constants import CHUNKER_WINDOW_SIZE
+from longtail_tpu_torch.ops import cdc
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 from longtail_tpu_torch.parallel.device_match import (
     BIN_WORDS,
     bin_mins_from_words,
 )
 
-WINDOW = _host.constants.CHUNKER_WINDOW_SIZE
+WINDOW = CHUNKER_WINDOW_SIZE
 BIG = 2**31 - 1
 SCAN_TILE = 4096        # bytes per scan-kernel block (csrc/stage1.cu)
+WALK_CAP = 12288        # states a part keeps in the walk kernel's shared memory
 _M = 0xFFFFFFFF
 
 SOURCE = "longtail_tpu_torch/csrc/stage1.cu"
@@ -90,7 +95,7 @@ class Stage1Plan:
 def hash_table(device) -> torch.Tensor:
     """The HPCDC byte table as (256,) int32 on device (u32 bits)."""
     return torch.from_numpy(
-        _host.cdc.HASH_TABLE.astype(np.uint32).view(np.int32)).to(device)
+        cdc.HASH_TABLE.astype(np.uint32).view(np.int32)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -220,25 +225,50 @@ def walk_plain(lengths, min1, min2, cnt, suf, plan: Stage1Plan):
     return torch.from_numpy(out).to(lengths.device)
 
 
-def walk(lengths, min1, min2, cnt, suf, plan: Stage1Plan):
-    """Walk kernel wrapper; same contract as walk_plain."""
+_SCRATCH: dict = {}
+
+
+def walk_scratch(plan: Stage1Plan, device, stream: int = 0):
+    """The walk kernel's global scratch for parts too dense for shared
+    memory: per part, 4 int32 and 1 uint8 arrays of 2 * Sp + 2 states;
+    (None, None) where no part of the plan can hold more than WALK_CAP
+    states.  Kept per (geometry, device, stream): the launches of one
+    stream run in order, so they share it."""
+    stride = 2 * plan.segments_per_part + 2
+    if stride <= WALK_CAP:
+        return None, None
+    key = (plan.lanes, stride, str(device), stream)
+    if key not in _SCRATCH:
+        n = plan.lanes * stride
+        _SCRATCH[key] = (torch.empty(4 * n, dtype=torch.int32, device=device),
+                         torch.empty(n, dtype=torch.uint8, device=device))
+    return _SCRATCH[key]
+
+
+def walk(lengths, min1, min2, cnt, plan: Stage1Plan):
+    """Walk kernel wrapper; walk_plain's contract, from the summaries
+    alone (the kernel needs no suffix-min; the plain version takes
+    ``suffix_min`` of min1)."""
     if lengths.device.type == "cpu":
-        return walk_plain(lengths, min1, min2, cnt, suf, plan)
+        return walk_plain(lengths, min1, min2, cnt, suffix_min(min1, plan),
+                          plan)
     B, c_pad = plan.lanes, plan.c_pad
     n_seg = B * plan.segments_per_part
     dev = lengths.device
     _kernels.require("lengths", lengths, torch.int32, (B,))
-    for name, t in (("min1", min1), ("min2", min2), ("cnt", cnt),
-                    ("suf", suf)):
+    for name, t in (("min1", min1), ("min2", min2), ("cnt", cnt)):
         _kernels.require(name, t, torch.int32, (n_seg,), dev)
+    stream = _kernels.stream_of(lengths)
+    s32, s8 = walk_scratch(plan, dev, stream)
     out = torch.empty((B, c_pad + 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _kernels.load().lt_stage1_walk(
             lengths.data_ptr(), min1.data_ptr(), min2.data_ptr(),
-            cnt.data_ptr(), suf.data_ptr(), out.data_ptr(), B,
+            cnt.data_ptr(), None if s32 is None else s32.data_ptr(),
+            None if s8 is None else s8.data_ptr(), out.data_ptr(), B,
             plan.part_bytes, plan.segments_per_part,
             plan.z.bit_length() - 1, plan.cfg.min_size, plan.cfg.max_size,
-            c_pad, _kernels.stream_of(lengths))
+            c_pad, stream)
     _kernels.check(rc, "lt_stage1_walk")
     _kernels.count_launch(walk)
     return out
@@ -249,11 +279,10 @@ walk.LAUNCHES = 0
 
 def stage1(batch: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor,
            plan: Stage1Plan, with_bins: bool = False):
-    """scan -> suffix_min -> walk: (the (lanes, c_pad + 2) walk output,
-    the scan's bin-mins with with_bins, else None)."""
+    """scan -> walk: (the (lanes, c_pad + 2) walk output, the scan's
+    bin-mins with with_bins, else None)."""
     min1, min2, cnt, *bins = scan(batch, lengths, table, plan, with_bins)
-    suf = suffix_min(min1, plan)
-    return (walk(lengths, min1, min2, cnt, suf, plan),
+    return (walk(lengths, min1, min2, cnt, plan),
             bins[0] if bins else None)
 
 
@@ -274,8 +303,8 @@ def unpack_walk(out: np.ndarray, plan: Stage1Plan):
 def repair_lane(part_bytes_u8: np.ndarray, cfg: ChunkerConfig) -> np.ndarray:
     """Exact host re-chunk of one flagged lane; returns chunk sizes."""
     repair_lane.REPAIRS += 1
-    ends = _host.cdc.chunk_part(part_bytes_u8, cfg.min_size, cfg.avg_size,
-                                cfg.max_size)
+    ends = cdc.chunk_part(part_bytes_u8, cfg.min_size, cfg.avg_size,
+                          cfg.max_size)
     return np.diff(np.concatenate([[0], ends])).astype(np.int32)
 
 

@@ -1,2 +1,2 @@
-"""Block stores of the port: the compression wrapper over the port's
-codecs (the other stores are the host package's, through ``_host``)."""
+"""Block stores (the port's copies of the JAX package's); the compression
+wrapper runs its codecs' match search on a torch device."""

@@ -58,7 +58,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_constants_are_the_host_modules():
-    assert blake3.IV is jblake3.IV and blake3.PERM is jblake3.PERM
+    assert blake3.IV == jblake3.IV and blake3.PERM == jblake3.PERM
     assert (blake3.CHUNK_START, blake3.CHUNK_END, blake3.PARENT,
             blake3.ROOT) == (jblake3.CHUNK_START, jblake3.CHUNK_END,
                              jblake3.PARENT, jblake3.ROOT)

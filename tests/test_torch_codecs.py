@@ -311,11 +311,12 @@ def test_lz4_device_codec_matches_jax(name):
 def test_zstd_libzstd_tier_matches_jax():
     """entropy="libzstd": ZSTD_compressSequences on the device anchors, or
     host zstd where libzstd lacks it — the JAX package's choice either
-    way.  The JAX package's libzstd context lives per thread and its first
-    call emits other (valid) bytes than later ones, so one call warms it
+    way.  Each package's libzstd context lives per thread and its first
+    call emits other (valid) bytes than later ones, so one call warms each
     before the comparison."""
     src = structured(9, 3 << 17)
     jzstd_device.compress_block(src, entropy="libzstd")
+    zstd_device.compress_block(src, entropy="libzstd", device="cpu")
     got = zstd_device.compress_block(src, entropy="libzstd", device="cpu")
     assert got == jzstd_device.compress_block(src, entropy="libzstd")
     assert zstd.decompress(got, len(src)) == src
@@ -425,7 +426,8 @@ def test_upsync_device_codecs_write_the_jax_packages_blocks(
 
 def test_cli_upsync_opens_the_ports_compress_store(tmp_path, monkeypatch):
     """upsync writes through the port's CompressBlockStore: on the card
-    with --device, with the host codecs without it."""
+    with and without --device, on the CPU with --device cpu, with the host
+    codecs with --device host."""
     seen = []
 
     def fake_upsync(storage, root, store, **kw):
@@ -438,13 +440,15 @@ def test_cli_upsync_opens_the_ports_compress_store(tmp_path, monkeypatch):
             "--source-path", str(tmp_path), "--target-path",
             str(tmp_path / "v.lvi")]
     for extra in ([], ["--device"], ["--device", "--hash-algorithm",
-                                     "blake2"]):
+                                     "blake2"], ["--device", "cuda"],
+                  ["--device", "cpu"], ["--device", "host"]):
         with pytest.raises(KeyboardInterrupt):
             cli.main(argv + extra)
-    cuda = torch.device("cuda")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    want = [cuda, cuda, cuda, cuda, cpu, None]
     assert all(isinstance(s, CompressBlockStore) for s, _ in seen)
-    assert [s.device for s, _ in seen] == [None, cuda, cuda]
-    assert [d for _, d in seen] == [None, cuda, cuda]
+    assert [s.device for s, _ in seen] == want
+    assert [d for _, d in seen] == want
 
 
 def test_count_launch_loses_no_update_across_threads():

@@ -2,6 +2,7 @@
 held against the JAX package: its Pallas kernels in interpret mode, its
 XLA formulation and the reference chunker's golden vectors."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -219,3 +220,91 @@ def test_suffix_min_is_exclusive_per_part():
 def test_plan_rejects_unaligned_parts():
     with pytest.raises(ValueError):
         stage1.Stage1Plan(ChunkerConfig.from_target(1024), 1, 1000)
+
+
+@pytest.mark.parametrize("part", [16384, 1 << 20])
+def test_walk_scratch_only_past_the_shared_memory_cap(part):
+    """The walk's global scratch exists only where a part can hold more
+    than WALK_CAP states (2 per segment + 2), sized for that, and one
+    geometry on one stream reuses it."""
+    plan = stage1.Stage1Plan(ChunkerConfig.from_target(1024), 2, part)
+    stride = 2 * plan.segments_per_part + 2
+    s32, s8 = stage1.walk_scratch(plan, "cpu")
+    if stride <= stage1.WALK_CAP:
+        assert (s32, s8) == (None, None)
+        return
+    assert (s32.numel(), s8.numel()) == (4 * 2 * stride, 2 * stride)
+    again = stage1.walk_scratch(plan, "cpu")
+    assert again[0] is s32 and again[1] is s8
+
+
+def _plan_with_c_pad(plan, c_pad):
+    """plan with its c_pad cut to c_pad (the walk's truncation case)."""
+    @dataclasses.dataclass(frozen=True)
+    class Cut(stage1.Stage1Plan):
+        @property
+        def c_pad(self):
+            return c_pad
+    return Cut(plan.cfg, plan.lanes, plan.part_bytes)
+
+
+def _walk_case(name):
+    """The adversarial summaries chip_smoke.py gives the walk kernel, at
+    the CPU's size: (plan, numpy-seeded batch bytes, lengths)."""
+    rng = np.random.default_rng(23)
+    P = 16384
+    cfg = ChunkerConfig.from_target(1024)
+    if name == "zeros":                       # forced cuts only
+        return (stage1.Stage1Plan(cfg, 2, P), np.zeros(2 * P, np.uint8),
+                [P, P - 4096])
+    if name == "dense":                       # ambiguous lanes
+        data = rng.integers(0, 256, 2 * P, dtype=np.uint8)
+        return (stage1.Stage1Plan(ChunkerConfig(48, 64, 256), 2, P), data,
+                [P, P - 777])
+    data = rng.integers(0, 256, 4 * P, dtype=np.uint8)
+    plan = stage1.Stage1Plan(cfg, 4, P)
+    if name == "lengths":                     # 0, below min_size, ragged
+        return plan, data, [0, cfg.min_size - 1, P - 4097, P]
+    return _plan_with_c_pad(plan, 8), data, [P, P - 1, 3000, 100]
+
+
+@pytest.mark.parametrize("name", ["zeros", "dense", "lengths", "c_pad"])
+def test_walk_matches_pallas_interpret_on_adversarial_summaries(name):
+    """walk_plain (the card's walk kernel's reference) against the JAX
+    package's walk kernel in interpret mode, on the summaries of a part
+    of zeros, of dense candidates with ambiguous lanes, of lengths 0 and
+    below min_size, and with the cut list truncated at c_pad: equal cut
+    ends (up to n_chunks), counts and ambiguity flags."""
+    plan, data, lengths = _walk_case(name)
+    lens = np.asarray(lengths, np.int32)
+    P = plan.part_bytes
+    for b, n in enumerate(lens):
+        data[b * P + n:(b + 1) * P] = 0
+    lt = torch.from_numpy(lens)
+    m1, m2, cn = stage1.scan(torch.from_numpy(data), lt,
+                             stage1.hash_table("cpu"), plan)
+    suf = stage1.suffix_min(m1, plan)
+    got = stage1.walk(lt, m1, m2, cn, plan).numpy()
+    assert np.array_equal(got, stage1.walk_plain(lt, m1, m2, cn, suf,
+                                                 plan).numpy())
+    rows = plan.lanes * plan.segments_per_part // 128
+    jcfg = JChunkerConfig(plan.cfg.min_size, plan.cfg.avg_size,
+                          plan.cfg.max_size)
+    ends, flags = jstage1._make_walk_kernel(
+        jcfg, plan.lanes, P, plan.z, plan.c_pad)(
+        lens.reshape(-1, 1), *(t.numpy().reshape(rows, 128)
+                               for t in (m1, m2, cn, suf)))
+    ends, flags = np.asarray(ends), np.asarray(flags)
+    n = got[:, plan.c_pad]
+    np.testing.assert_array_equal(n, flags[0, :plan.lanes])
+    np.testing.assert_array_equal(got[:, plan.c_pad + 1],
+                                  flags[1, :plan.lanes])
+    for b in range(plan.lanes):
+        np.testing.assert_array_equal(got[b, :n[b]], ends[:n[b], b])
+        assert not got[b, n[b]:plan.c_pad].any()
+    if name == "zeros":
+        assert n.tolist() == [8, 6] and not got[:, -1].any()
+    if name == "dense":
+        assert got[:, -1].all()
+    if name == "c_pad":
+        assert (n == plan.c_pad).sum() >= 2

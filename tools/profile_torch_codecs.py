@@ -26,10 +26,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from longtail_tpu_torch import _host, _kernels, api  # noqa: E402
-from longtail_tpu_torch.ops import device_entropy, zstd_device  # noqa: E402
+from longtail_tpu_torch import _kernels, api  # noqa: E402
+from longtail_tpu_torch.core import indexing  # noqa: E402
+from longtail_tpu_torch.formats import constants as C  # noqa: E402
+from longtail_tpu_torch.ops import (  # noqa: E402
+    device_entropy,
+    lz4,
+    zstd_device,
+    zstd_frame,
+)
 from longtail_tpu_torch.parallel import device_lz4  # noqa: E402
 from longtail_tpu_torch.stores import compressblockstore  # noqa: E402
+from longtail_tpu_torch.stores.fsblockstore import FSBlockStore  # noqa: E402
+from longtail_tpu_torch.stores.storage import FSStorage  # noqa: E402
 
 ACC = collections.defaultdict(float)
 CNT = collections.Counter()
@@ -52,19 +61,20 @@ def timed(mod, name, label):
 
 
 timed(api, "create_version_index", "index (create_version_index)")
-timed(_host, "write_content", "write_content (wall)")
+timed(api, "write_content", "write_content (wall)")
 timed(compressblockstore, "compress_block", "compress_block (thread sum)")
 timed(zstd_device, "fast_block_anchors", "zstd: anchors (device sorts, copies)")
-timed(_host, "sequences_from_anchors", "zstd: native sequence walk")
+timed(zstd_device, "sequences_from_anchors", "zstd: native sequence walk")
 timed(zstd_device, "frame_from_sequences", "zstd: frame assembly")
 timed(device_entropy, "device_histogram", "zstd frame: histogram (device)")
-timed(_host, "build_huffman", "zstd frame: build_huffman (host)")
+timed(zstd_frame, "build_huffman", "zstd frame: build_huffman (host)")
 timed(device_entropy, "_pack_streams_device", "zstd frame: hufpack + copies")
-timed(_host, "_encode_sequences", "zstd frame: _encode_sequences (host)")
+timed(zstd_frame, "_encode_sequences",
+      "zstd frame: _encode_sequences (host)")
 timed(device_lz4, "block_anchors", "lz4: anchors (device sorts, copies)")
-timed(_host.lz4, "assemble_anchors", "lz4: native assembly")
-timed(_host.host_indexing, "_chunk_one_asset", "small files (host path)")
-timed(_host.host_indexing, "assemble_chunked_assets",
+timed(lz4, "assemble_anchors", "lz4: native assembly")
+timed(indexing, "_chunk_one_asset", "small files (host path)")
+timed(indexing, "assemble_chunked_assets",
       "assemble_chunked_assets (content hashes)")
 
 
@@ -102,9 +112,8 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
     _kernels.load()
-    C = _host.constants
     dev = torch.device("cuda")
-    fs = _host.FSStorage()
+    fs = FSStorage()
     tmp = tempfile.mkdtemp(prefix="lt_profile_")
     out = {}
     try:
@@ -117,7 +126,7 @@ def main():
         def upsync(tree, tag, hash_id=C.HASH_TYPE_BLAKE3):
             nonlocal k
             k += 1
-            store = compressblockstore.CompressBlockStore(_host.FSBlockStore(
+            store = compressblockstore.CompressBlockStore(FSBlockStore(
                 fs, os.path.join(tmp, f"store{k}")), device=dev)
             t0 = time.perf_counter()
             api.upsync(fs, tree, store, compression_tag=tag,
