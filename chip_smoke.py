@@ -17,8 +17,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
    summaries (a part of zeros, dense ambiguous candidates, lengths 0,
    below min_size, ragged and whole, 64 lanes x 1 MiB, a c_pad cut to 8,
    2 x 32 MiB of 256-byte-period content) against suffix_min +
-   walk_plain, each checked to reach the branch it exists for; pack, BLAKE3 and BLAKE2 on every size class
-   of that batch's chunks plus a size-0 padding tail; the Huffman pack
+   walk_plain, each checked to reach the branch it exists for; the scan
+   also at the smallest Z (128, another discriminator; on ragged parts
+   and timed on the batch), at an odd discriminator (its candidate
+   filter without a rotate) and on a batch that ends inside a block;
+   BLAKE3 on all of that batch's chunks in one
+   launch and on an adversarial batch (odd starts, sizes 0 to 1024
+   leaves, a chunk ending on the batch's last byte), and its row
+   interface on each size class; pack and BLAKE2 on every size class of
+   that batch's chunks plus a size-0 padding tail; the Huffman pack
    on the four streams of a 128 KiB zstd block of the structured data,
    a short single-stream section and a skewed distribution;
 4. main path: the CLI's ``upsync`` of a synthetic asset tree (--gib GiB,
@@ -37,8 +44,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    bytes, and the ratios stand beside host zstd level 3 and host LZ4;
 6. stage 4: DevicePartIndexer(compress=True) over a few batches, anchors
    from the scan's bins equal to those from the words, every block
-   assembled by the host LZ4 walk and decoded; scan, walk, pack and
-   BLAKE3 each launched in the compress=True batches; prints GB/s.
+   assembled by the host LZ4 walk and decoded; scan, walk and BLAKE3
+   each launched in the compress=True batches, pack never; prints GB/s.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
@@ -65,15 +72,21 @@ import numpy as np
 # (NVIDIA's Hopper architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations per 64-byte compression: 8 G functions of 14
-# operations (6 adds, 4 xors, 4 rotates) per round, and the output xors
-BLAKE3_OPS = 7 * 8 * 14 + 8
-BLAKE2_OPS = 10 * 8 * 14 + 16
-# ALU operations per scanned byte: the rolling update (2 funnel-shift
-# rotates and one 3-input xor, a LOP3) and the candidate test h % d ==
-# d - 1 (a multiply-high, a multiply-subtract and a compare); the table
-# lookup is a shared-memory load, not an ALU operation
-SCAN_OPS = 6
+# integer operations per 64-byte compression: 8 G functions per round of
+# 12 operations each (Hopper's IADD3 adds three operands in one
+# instruction, so a + b + m is one: 2 three-input adds, 2 adds, 4 xors,
+# 4 rotates), and the 8 output words (BLAKE3 v[i] ^ v[i + 8]; BLAKE2s
+# h[i] ^ v[i] ^ v[i + 8], one 3-input LOP3 each)
+BLAKE3_OPS = 7 * 8 * 12 + 8
+BLAKE2_OPS = 10 * 8 * 12 + 8
+# ALU operations per scanned byte: the rolling update h' = rotl(h, 1) ^
+# T16[out] ^ T[in] (a rotate and a 3-input xor, LOP3; the outgoing byte's
+# rotate is folded into the table T16 = rotl(T, 48)) and the candidate
+# test without a division (one IMAD, n = (h + 1) * d0^-1, and half of a
+# 3-input min over the positions' n; an even d adds a rotate of n, and
+# 4.5 operations a byte would still leave the bound to the bytes); the
+# table lookups are shared-memory loads, not ALU operations
+SCAN_OPS = 3.5
 SECTOR = 32             # bytes of the least read of global memory
 
 
@@ -372,6 +385,87 @@ def walk_cases(rng, dev, table) -> int:
     return worst
 
 
+def scan_cases(rng, dev, table, cfg) -> int:
+    """The scan kernel against scan_plain (bins included) at the smallest
+    Z (128, target 1 KiB: another discriminator, two segments a thread)
+    on 4 x 1 MiB of lengths whole, ragged, 4097 and 0, on 3 parts of 20
+    KiB (a partial last block), and at an odd discriminator (target 128
+    KiB: d 49535, the kernel's filter without a rotate, Z 2048); each
+    checked to reach its branch.  Returns the largest max_abs_err."""
+    import torch
+
+    from longtail_tpu_torch.parallel import stage1
+    from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+
+    mib = 1 << 20
+    small = ChunkerConfig.from_target(1024)
+    cases = (("Z 128", small, 4, mib, structured(rng, 4 * mib),
+              [mib, mib - 1, 4097, 0]),
+             ("partial block", cfg, 3, 20480,
+              rng.integers(0, 256, 3 * 20480, dtype=np.uint8),
+              [20480, 100, 9999]),
+             ("odd d", ChunkerConfig.from_target(128 << 10), 2, 2 * mib,
+              structured(rng, 4 * mib), [2 * mib, mib + 12345]))
+    worst = 0
+    for name, c, lanes, part, data, lengths in cases:
+        plan = stage1.Stage1Plan(c, lanes, part)
+        for b, n in enumerate(lengths):
+            data[b * part + n:(b + 1) * part] = 0
+        batch = torch.from_numpy(data).to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = stage1.scan(batch, lens, table, plan, with_bins=True)
+        err = max_abs_err(got, stage1.scan_plain(batch, lens, table, plan,
+                                                 with_bins=True))
+        cands = int(got[2].sum())
+        log(f"scan {name}: {lanes} x {part} bytes, Z {plan.z}, d "
+            f"{c.discriminator}, {cands} candidates, max_abs_err {err}")
+        branch = {"Z 128": plan.z == 128 and
+                  c.discriminator != cfg.discriminator and cands > 0,
+                  "partial block": len(data) % (256 * 256) != 0
+                  and cands > 0,
+                  "odd d": c.discriminator % 2 == 1 and cands > 0}[name]
+        if not branch:
+            raise AssertionError(f"scan case {name!r} missed its branch")
+        worst = max(worst, err)
+    return worst
+
+
+def blake3_cases(rng, dev) -> int:
+    """The BLAKE3 kernel against hash_chunks_batch on a batch of chunks
+    it must get right in one call: odd starts, sizes 0, 1, 63, 64, 1023,
+    1024, 1025, the default geometry's largest chunk (64 KiB), a chunk of
+    MAX_LEAVES leaves (a block's threads loop over its leaves), size 0 at
+    the batch's end and a chunk ending on its last byte; each checked to
+    be there.  Returns max_abs_err."""
+    import torch
+
+    from longtail_tpu_torch.ops import blake3, blake3_kernel
+
+    n = (1 << 20) + (192 << 10)
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    sizes = np.array([0, 1, 63, 64, 1023, 1024, 1025, 65536, 4097, 33 << 10,
+                      0, 777, blake3.MAX_LEAVES * 1024], np.int64)
+    starts = np.array([5, 17, 1001, 3, 4095, 40961, 77, 70001, 1, 9, n,
+                       n - 777, 192 << 10], np.int64)
+    extra = rng.integers(0, 9000, 40)
+    sizes = np.concatenate([sizes, extra])
+    starts = np.concatenate([starts, [rng.integers(0, n - s + 1)
+                                      for s in extra]])
+    plan = blake3.plan_blocks(blake3.leaves_of(sizes))
+    reach = ((sizes == 0).any() and (starts % 4 != 0).any()
+             and (starts + sizes == n).any() and (starts == n).any()
+             and blake3.leaves_of(sizes).max() == blake3.MAX_LEAVES)
+    if not reach:
+        raise AssertionError("BLAKE3 cases miss a branch")
+    args = [torch.from_numpy(x).to(dev) for x in (
+        data, starts.astype(np.int32), sizes.astype(np.int32), plan)]
+    err = max_abs_err(blake3_kernel.hash_chunks_device(*args),
+                      blake3.hash_chunks_batch(*args[:3]))
+    log(f"blake3 adversarial: {len(sizes)} chunks in {len(plan) - 1} "
+        f"blocks, max_abs_err {err}")
+    return err
+
+
 def check_kernels(seed: int) -> list:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -382,6 +476,7 @@ def check_kernels(seed: int) -> list:
         blake3,
         blake3_kernel,
         entropy_kernel,
+        pack,
     )
     from longtail_tpu_torch.parallel import pipeline, stage1
     from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
@@ -421,8 +516,20 @@ def check_kernels(seed: int) -> list:
     bins_ms = cuda_ms(lambda: stage1.scan(batch, lens, table, plan,
                                           with_bins=True), 20)
     log(f"scan with bins: {bins_ms:.4f} ms, {got[3].numel()} bins")
-    row("scan", stage1.SOURCE, stage1.SCAN_REPLACES,
-        max_abs_err(got, want),
+    serr = max(max_abs_err(got, want), scan_cases(rng, dev, table, cfg))
+    # the same batch at the 1 KiB target: Z 128 and d 384 = 3 * 2^7, a
+    # candidate every ~384 bytes
+    small = stage1.Stage1Plan(ChunkerConfig.from_target(1024), 2, P)
+    got_small = stage1.scan(batch, lens, table, small)
+    serr = max(serr, max_abs_err(got_small, stage1.scan_plain(
+        batch, lens, table, small)))
+    small_ms = device_ms(lambda: stage1.scan(batch, lens, table, small), 20,
+                         "scan_kernel")
+    log(f"scan at Z 128, d {small.cfg.discriminator}: "
+        f"{int(got_small[2].sum())} candidates, {small_ms:.4f} ms of device "
+        f"time (the default's Z {plan.z}, d {cfg.discriminator}: the scan "
+        f"row)")
+    row("scan", stage1.SOURCE, stage1.SCAN_REPLACES, serr,
         cuda_ms(lambda: stage1.scan(batch, lens, table, plan), 20),
         cuda_ms(lambda: stage1.scan_plain(batch, lens, table, plan), 2),
         device_ms(lambda: stage1.scan(batch, lens, table, plan), 20,
@@ -456,13 +563,41 @@ def check_kernels(seed: int) -> list:
         all_st.append(b * P + np.concatenate([[0], np.cumsum(sz)[:-1]]))
         all_sz.append(sz)
     st_all, sz_all = np.concatenate(all_st), np.concatenate(all_sz)
+
+    # BLAKE3: every chunk of the batch in one launch, read from the batch;
+    # its bytes are the chunk bytes once, starts, sizes, plan and output
+    st_t = torch.from_numpy(st_all.astype(np.int32)).to(dev)
+    sz_t = torch.from_numpy(sz_all.astype(np.int32)).to(dev)
+    plan_t = torch.from_numpy(
+        blake3.plan_blocks(blake3.leaves_of(sz_all))).to(dev)
+    b3 = (batch, st_t, sz_t, plan_t)
+    b3err = max(max_abs_err(blake3_kernel.hash_chunks_device(*b3),
+                            blake3.hash_chunks_batch(*b3[:3])),
+                blake3_cases(rng, dev))
+    b3_blocks = np.maximum(-(-sz_all // 64), 1)
+    b3_leaves = blake3.leaves_of(sz_all)
+    b3_ms = cuda_ms(lambda: blake3_kernel.hash_chunks_device(*b3), 20)
+    b3_dev = device_ms(lambda: blake3_kernel.hash_chunks_device(*b3), 20,
+                       "blake3_kernel")
+    log(f"blake3: {len(sz_all)} chunks in {plan_t.numel() - 1} blocks, "
+        f"one launch: {b3_dev:.4f} ms of device time against the packed-"
+        f"row design's pack + BLAKE3 per batch (0.0784 + 0.1079 = 0.1863 "
+        f"ms on an H100 at 700 W)")
+    row("blake3", blake3_kernel.SOURCE, blake3_kernel.REPLACES, b3err,
+        b3_ms, cuda_ms(lambda: blake3.hash_chunks_batch(*b3[:3]), 1,
+                       warmup=False), b3_dev,
+        bound(int(sz_all.sum()) + nbytes(st_t, sz_t, plan_t) + 8 * len(sz_all),
+              BLAKE3_OPS * int((b3_blocks + b3_leaves - 1).sum())))
+
+    # pack and BLAKE2 (the BLAKE2 path) per size class; the BLAKE3 row
+    # interface on each class's packed rows
     cap, floor = pipeline.pow2_cap(cfg.padded_chunk), pipeline.class_floor(cfg)
     padded = pipeline._pow2_padded(sz_all, cap, floor)
-    err = {"pack": 0, "blake3": 0, "blake2": 0}
-    t = {k + s: 0.0 for k in ("pack", "blake3", "blake2")
+    err = {"pack": 0, "blake2": 0}
+    t = {k + s: 0.0 for k in ("pack", "blake2")
          for s in ("", "_plain", "_device")}
     # least bytes and integer operations of each function over the classes
-    work = {k: [0, 0] for k in ("pack", "blake3", "blake2")}
+    work = {k: [0, 0] for k in ("pack", "blake2")}
     for cls in np.unique(padded):
         idx = np.flatnonzero(padded == cls)
         tail = np.zeros(5, np.int64)                 # size-0 padding rows
@@ -471,40 +606,39 @@ def check_kernels(seed: int) -> list:
         sz = torch.from_numpy(np.concatenate([sz_all[idx], tail])
                               .astype(np.int32)).to(dev)
         cls = int(cls)
-        words = pipeline.pack(batch, st, sz, cls)
+        words = pack.pack(batch, st, sz, cls)
         err["pack"] = max(err["pack"], max_abs_err(
-            [words], [pipeline.pack_plain(batch, st, sz, cls)]))
-        t["pack"] += cuda_ms(lambda: pipeline.pack(batch, st, sz, cls), 10)
+            [words], [pack.pack_plain(batch, st, sz, cls)]))
+        t["pack"] += cuda_ms(lambda: pack.pack(batch, st, sz, cls), 10)
         t["pack_plain"] += cuda_ms(
-            lambda: pipeline.pack_plain(batch, st, sz, cls), 2)
+            lambda: pack.pack_plain(batch, st, sz, cls), 2)
         t["pack_device"] += device_ms(
-            lambda: pipeline.pack(batch, st, sz, cls), 10, "pack_kernel")
+            lambda: pack.pack(batch, st, sz, cls), 10, "pack_kernel")
         szl = sz.to(torch.int64)
         chunk_bytes = int(szl.sum())
         work["pack"][0] += chunk_bytes + nbytes(st, sz, words)
         blocks = torch.clamp((szl + 63) // 64, min=1)
-        leaves = torch.clamp((szl + 1023) // 1024, min=1)
-        rows_out = 8 * len(sz)                      # (lo, hi) per row
-        work["blake3"][0] += chunk_bytes + nbytes(sz) + rows_out
-        work["blake3"][1] += BLAKE3_OPS * int((blocks + leaves - 1).sum())
-        work["blake2"][0] += chunk_bytes + nbytes(sz) + rows_out
+        work["blake2"][0] += chunk_bytes + nbytes(sz) + 8 * len(sz)
         work["blake2"][1] += BLAKE2_OPS * int(blocks.sum())
-        for name, dev_fn, plain_fn in (
-                ("blake3", blake3_kernel.hash_chunks_words_device,
-                 blake3.hash_chunks_words),
-                ("blake2", blake2_kernel.hash_chunks_words_device,
-                 blake2.hash_chunks_words)):
-            err[name] = max(err[name], max_abs_err(
-                dev_fn(words, sz), plain_fn(words, sz)))
-            t[name] += cuda_ms(lambda: dev_fn(words, sz), 10)
-            t[name + "_plain"] += cuda_ms(lambda: plain_fn(words, sz), 1,
-                                          warmup=False)
-            t[name + "_device"] += device_ms(lambda: dev_fn(words, sz), 10,
-                                             f"{name}_kernel")
-        log(f"class {cls >> 10} KiB: {len(idx)} chunks + 5 padding rows")
+        rerr = max_abs_err(blake3_kernel.hash_chunks_words_device(words, sz),
+                           blake3.hash_chunks_words(words, sz))
+        if rerr:
+            raise AssertionError(f"BLAKE3 rows of class {cls}: max_abs_err "
+                                 f"{rerr}")
+        err["blake2"] = max(err["blake2"], max_abs_err(
+            blake2_kernel.hash_chunks_words_device(words, sz),
+            blake2.hash_chunks_words(words, sz)))
+        t["blake2"] += cuda_ms(
+            lambda: blake2_kernel.hash_chunks_words_device(words, sz), 10)
+        t["blake2_plain"] += cuda_ms(
+            lambda: blake2.hash_chunks_words(words, sz), 1, warmup=False)
+        t["blake2_device"] += device_ms(
+            lambda: blake2_kernel.hash_chunks_words_device(words, sz), 10,
+            "blake2_kernel")
+        log(f"class {cls >> 10} KiB: {len(idx)} chunks + 5 padding rows; "
+            f"BLAKE3 rows equal")
     for name, src, rep in (
-            ("pack", pipeline.PACK_SOURCE, pipeline.PACK_REPLACES),
-            ("blake3", blake3_kernel.SOURCE, blake3_kernel.REPLACES),
+            ("pack", pack.SOURCE, pack.REPLACES),
             ("blake2", blake2_kernel.SOURCE, blake2_kernel.REPLACES)):
         row(name, src, rep, err[name], t[name], t[name + "_plain"],
             t[name + "_device"], bound(*work[name]))
@@ -655,9 +789,11 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
         f"chunk+hash+compress anchors {wall:.3f} s = "
         f"{n_bytes / wall / 1e9:.3f} GB/s (one batch at a time); "
         f"launches {counts}")
-    for k in ("scan", "walk", "pack", "blake3"):
+    for k in ("scan", "walk", "blake3"):
         if counts[k] <= 0:
             raise AssertionError(f"the stage-4 path never launched {k}")
+    if counts["pack"]:
+        raise AssertionError("the BLAKE3 stage-4 path launched pack")
     blocks = 0
     for batch, anchors in zip(batches[1:], got):
         words = run(ix[False], batch)
@@ -711,9 +847,10 @@ def main() -> int:
         compression_registry,
         entropy_kernel,
         lz4,
+        pack,
         zstd,
     )
-    from longtail_tpu_torch.parallel import pipeline, stage1
+    from longtail_tpu_torch.parallel import stage1
     from longtail_tpu_torch.stores.compressblockstore import (
         CompressBlockStore,
     )
@@ -739,14 +876,14 @@ def main() -> int:
     # 4. main path: the CLI's upsync on the card, zstd (default), LZ4,
     # BLAKE2; the card is the default, and --device takes it bare or named
     wrappers = {"scan": stage1.scan, "walk": stage1.walk,
-                "pack": pipeline.pack,
-                "blake3": blake3_kernel.hash_chunks_words_device,
+                "pack": pack.pack,
+                "blake3": blake3_kernel.hash_chunks_device,
                 "blake2": blake2_kernel.hash_chunks_words_device,
                 "hufpack": entropy_kernel.hufpack}
     paths = {  # name: (extra flags, kernels the path must launch, tree)
-        "zstd": ([], ("scan", "walk", "pack", "blake3", "hufpack"), "src"),
+        "zstd": ([], ("scan", "walk", "blake3", "hufpack"), "src"),
         "lz4": (["--device", "--compression-algorithm", "lz4"],
-                ("scan", "walk", "pack", "blake3"), "src"),
+                ("scan", "walk", "blake3"), "src"),
         "blake2": (["--device", "cuda", "--hash-algorithm", "blake2"],
                    ("scan", "walk", "pack", "blake2", "hufpack"), "src_b2"),
     }
@@ -788,6 +925,9 @@ def main() -> int:
                     raise AssertionError(f"the {name} path never launched "
                                          f"{k}")
                 launches.setdefault(k, counts[k])
+            if "blake3" in need and counts["pack"]:
+                raise AssertionError(f"the {name} path launched pack: "
+                                     "BLAKE3 reads the batch")
         for r in rows:
             r["launches"] = launches[r["name"]]
 

@@ -50,16 +50,17 @@ _U = ctypes.c_uint32
 # name -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
     # bytes, lengths, table, min1, min2, cnt, bins (or NULL), n_bytes,
-    # part_bytes, z, d, stream
-    "lt_stage1_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _P],
+    # part_bytes, log2(z), inv, lim, shift, stream
+    "lt_stage1_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _I,
+                       _P],
     # lengths, min1, min2, cnt, scratch32, scratch8, out, n_parts,
     # part_bytes, seg_per_part, log2(z), min_size, max_size, c_pad, stream
     "lt_stage1_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P],
     # words, n_words, starts, sizes, out, rows, row_words, stream
     "lt_pack": [_P, _LL, _P, _P, _P, _I, _I, _P],
-    # words, lengths, out, rows, row_words, stream
-    "lt_blake3": [_P, _P, _P, _I, _I, _P],
+    # bytes, n_bytes, starts, sizes, plan, out, n_chunks, n_blocks, stream
+    "lt_blake3": [_P, _LL, _P, _P, _P, _P, _I, _I, _P],
     # words, lengths, out, rows, row_words, stream
     "lt_blake2": [_P, _P, _P, _I, _I, _P],
     # lits, n_lit, table, out, totals, n_streams, n_pad, W, stream
@@ -93,6 +94,8 @@ def defines() -> list[str]:
         f"-DLT_BLAKE3_ROOT={int(b3.ROOT)}u",
         f"-DLT_BLAKE3_BLOCK_BYTES={int(b3.BLOCK_BYTES)}",
         f"-DLT_BLAKE3_LEAF_BYTES={int(b3.LEAF_BYTES)}",
+        f"-DLT_BLAKE3_THREADS={int(b3.BLOCK_LEAVES)}",
+        f"-DLT_BLAKE3_MAX_LEAVES={int(b3.MAX_LEAVES)}",
         *(f"-DLT_BLAKE2_IV{i}={int(x):#x}u"
           for i, x in enumerate(b2.IV)),
         *(f"-DLT_BLAKE2_SIGMA{r}={v:#x}ull" for r, v in enumerate(sigma)),

@@ -1,31 +1,47 @@
-// BLAKE3-64 of a batch of chunk rows: the 16 compressions of every 1 KiB
-// leaf, then the left-leaning tree merge of each chunk's leaves.  The
-// 64-bit digest is the first two output words.
+// BLAKE3-64 of chunks where they lie in a flat byte batch: the 16
+// compressions of every 1 KiB leaf, then the left-leaning tree merge of
+// each chunk's leaves.  The 64-bit digest is the first two output words.
 //
 // Replaces longtail_tpu/ops/blake3_kernel.py _make_hash_fn (its
-// `_hash_kernel` / `_hash_tile`, entry hash_chunks_words_device).  The TPU
-// kernel lays leaves out as lanes of a transposed (256, L) word array so
-// that a block's 16 message words are row slices; a GPU thread reads its
-// leaf's contiguous words directly, so the row-major (rows, padded/4)
-// input needs no transpose.
-//   Bound on the H100: integer ALU work (112 G-function rounds of ~14
-// operations per 64-byte block), not bandwidth.  Design: one thread per
-// leaf, a block holding max(64, leaves per row) threads and so one or
-// more whole rows; each thread keeps the 16-word state and 16 message
-// words in registers for its leaf's compressions (the message schedule is
-// resolved at compile time), skipping leaves and blocks past the chunk's
-// length.  The leaf chaining values then merge level by level in shared
-// memory: adjacent pairs compress with PARENT (ROOT on the last merge) and
-// an odd tail carries up, as blake3_kernel.py does within its tile.  A
-// row of length 0 hashes the empty input.
-//
-// Input words must be zero past each row's length (the pack kernel
-// guarantees it); leaves per row must be a power of two <= 1024.
+// `_hash_kernel` / `_hash_tile`) and, on this path, the pack kernel in
+// front of it.  The TPU kernel hashes rows that pack has copied into
+// aligned, zero-padded words of a power-of-two size class, because a DMA
+// reads aligned windows; a GPU thread reads any address, so this kernel
+// reads each chunk's bytes once, where they are, and hashes every chunk of
+// a batch in one launch.
+//   Bound on the H100: integer ALU work (7 rounds of 8 G functions, 12
+// operations each, per 64-byte block), not bandwidth.  Design:
+//  - Work plan.  The host (ops/blake3.py plan_blocks) gives each block of
+//    kThreads threads the whole chunks whose first leaf falls in its range
+//    of kThreads leaves: at most kThreads chunks and kThreads - 1 +
+//    kMaxLeaves leaves.  No thread is given a leaf past its chunk's end,
+//    and there are no size classes.
+//  - Leaves.  The block scans its chunks' leaf counts into leaf offsets in
+//    shared memory; its threads take the block's leaves in turn, find
+//    their chunk by binary search and run its compressions with the state
+//    and message in registers.  A 64-byte block is five 16-byte loads,
+//    aligned down, and one funnel shift per word; bytes past the chunk's
+//    size are zeroed in registers (what pack's padding used to provide).
+//    The next block's loads are issued before the current compression.
+//  - Merge.  Leaf chaining values sit in shared memory at their leaf slot.
+//    Level by level, node pairs (2j, 2j + 1) of each chunk merge into the
+//    left one with PARENT (ROOT on a chunk's last merge) and an odd node
+//    carries up in place, as blake3_kernel.py does.  A level's merges of
+//    all the block's chunks are numbered by an exclusive scan and taken by
+//    the first threads, so whole warps idle instead of every warp running
+//    the compression with a few lanes.  A chunk of size 0 hashes the empty
+//    input.
+// The plan must hold (the kernel traps otherwise): at most kThreads chunks
+// and kSlots leaves a block, every chunk inside the batch.
+//   The experiments of tools/profile_torch_codecs.py --kernel-variants are
+// builds with LT_VARIANT_NO_LOADS (the chunk bytes made in registers) or
+// LT_VARIANT_NO_MERGE (the tree merge skipped) defined.  Each removes one
+// part of the work and computes wrong results; the library defines neither.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef LT_BLAKE3_IV0
+#if !defined(LT_BLAKE3_IV0) || !defined(LT_BLAKE3_THREADS)
 #error "build through longtail_tpu_torch/_kernels.py, which defines the algorithm constants"
 #endif
 
@@ -37,7 +53,12 @@ constexpr uint32_t kParent = LT_BLAKE3_PARENT;
 constexpr uint32_t kRoot = LT_BLAKE3_ROOT;
 constexpr int kBlockBytes = LT_BLAKE3_BLOCK_BYTES;
 constexpr int kLeafBytes = LT_BLAKE3_LEAF_BYTES;
-constexpr int kLeafWords = kLeafBytes / 4;
+constexpr int kThreads = LT_BLAKE3_THREADS;     // threads, and leaves planned, a block
+constexpr int kMaxLeaves = LT_BLAKE3_MAX_LEAVES;
+constexpr int kSlots = kThreads + kMaxLeaves;   // leaves a block can hold
+constexpr int kWarps = kThreads / 32;
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
+static_assert(kBlockBytes == 64, "16 message words of 4 bytes");
 
 __host__ __device__ constexpr uint32_t iv(int i) {
   constexpr uint32_t v[8] = {LT_BLAKE3_IV0, LT_BLAKE3_IV1, LT_BLAKE3_IV2,
@@ -108,102 +129,216 @@ __device__ __forceinline__ void compress(uint32_t cv[8], const uint32_t m[16],
   for (int i = 0; i < 8; ++i) cv[i] = v[i] ^ v[i + 8];
 }
 
-template <int T>
-__global__ void __launch_bounds__(T)
-blake3_kernel(const uint32_t* __restrict__ words,
-              const int32_t* __restrict__ lengths, uint32_t* __restrict__ out,
-              int rows, int row_words) {
-  __shared__ uint32_t cvs[T][8];
-  const int leaves = row_words / kLeafWords;    // power of two, <= T
-  const int t = threadIdx.x;
-  const int row = blockIdx.x * (T / leaves) + t / leaves;
-  const int leaf = t & (leaves - 1);
-  const bool live = row < rows;
-  const int len = live ? lengths[row] : 0;
-  const int n_leaves = max((len + kLeafBytes - 1) / kLeafBytes, 1);
+// m[i] = little-endian word at byte 4 i + 4 Q + sh / 8 of w
+template <int Q>
+__device__ __forceinline__ void shift_words(const uint32_t w[20], int sh,
+                                            uint32_t m[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = __funnelshift_r(w[Q + i], w[Q + i + 1], sh);
+}
 
-  uint32_t h[8];
+// the five aligned 16-byte loads that cover the blen (0..64) bytes at a,
+// none past the chunk's last byte (so none past the batch)
+__device__ __forceinline__ void fetch_block(const uint8_t* __restrict__ bytes,
+                                            long long a, int blen,
+                                            uint4 q[5]) {
+  const long long a0 = a & ~15LL;
+  const uint4* src = reinterpret_cast<const uint4*>(bytes + a0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = iv(i);
-  if (live && leaf < n_leaves) {
-    const int leaf_len = min(max(len - leaf * kLeafBytes, 0), kLeafBytes);
+  for (int k = 0; k < 5; ++k) {
+#ifdef LT_VARIANT_NO_LOADS
+    q[k] = a0 + 16 * k < a + blen
+               ? make_uint4((uint32_t)a0 + k, (uint32_t)a * 3u, (uint32_t)k,
+                            (uint32_t)blen)
+               : make_uint4(0u, 0u, 0u, 0u);
+#else
+    q[k] = a0 + 16 * k < a + blen ? __ldg(src + k)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+#endif
+  }
+}
+
+// m = the blen bytes at a from fetch_block's loads, zero past them
+__device__ __forceinline__ void load_block(const uint4 q[5], long long a,
+                                           int blen, uint32_t m[16]) {
+  uint32_t w[20];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    w[4 * k] = q[k].x;
+    w[4 * k + 1] = q[k].y;
+    w[4 * k + 2] = q[k].z;
+    w[4 * k + 3] = q[k].w;
+  }
+  const int lead = (int)(a & 15), sh = 8 * (lead & 3);
+  switch (lead >> 2) {
+    case 0: shift_words<0>(w, sh, m); break;
+    case 1: shift_words<1>(w, sh, m); break;
+    case 2: shift_words<2>(w, sh, m); break;
+    default: shift_words<3>(w, sh, m); break;
+  }
+  if (blen < kBlockBytes) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int nb = blen - 4 * i;          // chunk bytes in word i
+      m[i] = nb >= 4 ? m[i] : nb <= 0 ? 0u : m[i] & ((1u << (8 * nb)) - 1u);
+    }
+  }
+}
+
+// exclusive prefix sum of x over the block; *total = the sum.  Ends with
+// a barrier after its reads of `tot`, so calls may follow one another.
+__device__ int block_exclusive_scan(int x, int* total, int* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    before += k < warp ? tot[k] : 0;
+    sum += tot[k];
+  }
+  __syncthreads();
+  *total = sum;
+  return before + incl - x;
+}
+
+// the last c < n with key[c] <= i (key ascending, key[0] <= i)
+__device__ __forceinline__ int owner(const int* key, int n, int i) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (key[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+blake3_kernel(const uint8_t* __restrict__ bytes,
+              const int32_t* __restrict__ starts,
+              const int32_t* __restrict__ sizes,
+              const int32_t* __restrict__ plan, uint32_t* __restrict__ out,
+              int n_chunks, long long n_bytes) {
+  __shared__ uint32_t cvs[8][kSlots];       // chaining value of each slot
+  __shared__ int c_start[kThreads], c_size[kThreads];
+  __shared__ int c_leaf[kThreads + 1];      // first leaf slot of each chunk
+  __shared__ int c_task[kThreads + 1];      // first merge of each chunk
+  __shared__ int tot[kWarps];
+
+  const int tid = threadIdx.x;
+  const int c0 = plan[blockIdx.x];
+  const int nc = plan[blockIdx.x + 1] - c0;
+  if (nc > kThreads) __trap();
+  int leaves = 0;
+  if (tid < nc) {
+    c_start[tid] = starts[c0 + tid];
+    c_size[tid] = sizes[c0 + tid];
+    if (c_start[tid] < 0 || c_size[tid] < 0 ||
+        (long long)c_start[tid] + c_size[tid] > n_bytes) {
+      __trap();                             // a chunk outside the batch
+    }
+    leaves = max((c_size[tid] + kLeafBytes - 1) / kLeafBytes, 1);
+  }
+  int total;
+  const int first = block_exclusive_scan(leaves, &total, tot);
+  if (total > kSlots) __trap();
+  if (tid < nc) c_leaf[tid] = first;
+  if (tid == 0) c_leaf[nc] = total;
+  __syncthreads();
+
+  // leaves: slot i is leaf j of chunk c
+  for (int i = tid; i < total; i += kThreads) {
+    const int c = owner(c_leaf, nc, i);
+    const int j = i - c_leaf[c];
+    const bool single = c_leaf[c + 1] - c_leaf[c] == 1;
+    const int leaf_len = min(max(c_size[c] - j * kLeafBytes, 0), kLeafBytes);
     const int n_blocks = max((leaf_len + kBlockBytes - 1) / kBlockBytes, 1);
-    const uint4* src = reinterpret_cast<const uint4*>(
-        words + (long long)row * row_words + (long long)leaf * kLeafWords);
-    for (int k = 0; k < n_blocks; ++k) {
-      uint32_t m[16];
+    const long long a = (long long)c_start[c] + (long long)j * kLeafBytes;
+    uint32_t h[8];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint4 w = src[4 * k + q];
-        m[4 * q] = w.x;
-        m[4 * q + 1] = w.y;
-        m[4 * q + 2] = w.z;
-        m[4 * q + 3] = w.w;
+    for (int k = 0; k < 8; ++k) h[k] = iv(k);
+    // the next block's loads are in flight during this one's compression
+    uint4 q[5];
+    fetch_block(bytes, a, min(leaf_len, kBlockBytes), q);
+    for (int k = 0; k < n_blocks; ++k) {
+      const int blen = min(leaf_len - k * kBlockBytes, kBlockBytes);
+      uint32_t m[16];
+      load_block(q, a + k * kBlockBytes, blen, m);
+      if (k + 1 < n_blocks) {
+        fetch_block(bytes, a + (k + 1) * kBlockBytes,
+                    min(leaf_len - (k + 1) * kBlockBytes, kBlockBytes), q);
       }
       const bool last = k == n_blocks - 1;
       const uint32_t flags = (k == 0 ? kChunkStart : 0u) |
                              (last ? kChunkEnd : 0u) |
-                             (last && n_leaves == 1 ? kRoot : 0u);
-      const int blen = min(leaf_len - k * kBlockBytes, kBlockBytes);
-      compress(h, m, (uint32_t)leaf, (uint32_t)blen, flags);
+                             (last && single ? kRoot : 0u);
+      compress(h, m, (uint32_t)j, (uint32_t)blen, flags);
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) cvs[t][i] = h[i];
+    for (int k = 0; k < 8; ++k) cvs[k][i] = h[k];
+  }
   __syncthreads();
 
-  // level `step`: live node i of a chunk sits at leaf i * step; node pairs
-  // (2j, 2j+1) merge into the left one, a node without partner carries up
-  for (int step = 1; step < leaves; step <<= 1) {
-    const int nodes = (n_leaves + step - 1) / step;
-    const bool merge = live && (leaf & (2 * step - 1)) == 0 &&
-                       leaf / step + 1 < nodes;
-    uint32_t p[8];
-    if (merge) {
-      uint32_t m[16];
+  // merge levels: node t of a chunk sits at its slot t * step; a merge
+  // reads slots 2 t step and (2 t + 1) step and writes the first, so the
+  // merges of a level touch disjoint slots
+  for (int step = 1;; step <<= 1) {
+    int nodes = 0;
+    if (tid < nc) nodes = (c_leaf[tid + 1] - c_leaf[tid] + step - 1) / step;
+    int merges;
+    const int before = block_exclusive_scan(nodes / 2, &merges, tot);
+#ifdef LT_VARIANT_NO_MERGE
+    break;
+#endif
+    if (merges == 0) break;
+    if (tid < nc) c_task[tid] = before;
+    __syncthreads();
+    for (int t = tid; t < merges; t += kThreads) {
+      const int c = owner(c_task, nc, t);
+      const int k = t - c_task[c];
+      const int n = (c_leaf[c + 1] - c_leaf[c] + step - 1) / step;
+      const int left = c_leaf[c] + 2 * k * step;
+      uint32_t m[16], p[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        m[i] = cvs[t][i];
-        m[i + 8] = cvs[t + step][i];
-        p[i] = iv(i);
+      for (int q = 0; q < 8; ++q) {
+        m[q] = cvs[q][left];
+        m[q + 8] = cvs[q][left + step];
+        p[q] = iv(q);
       }
-      compress(p, m, 0u, (uint32_t)kBlockBytes,
-               kParent | (nodes == 2 ? kRoot : 0u));
-    }
-    __syncthreads();
-    if (merge) {
+      compress(p, m, 0u, (uint32_t)kBlockBytes, kParent | (n == 2 ? kRoot : 0u));
 #pragma unroll
-      for (int i = 0; i < 8; ++i) cvs[t][i] = p[i];
+      for (int q = 0; q < 8; ++q) cvs[q][left] = p[q];
     }
     __syncthreads();
   }
-  if (live && leaf == 0) {
-    out[row] = cvs[t][0];
-    out[rows + row] = cvs[t][1];
+  if (tid < nc) {
+    out[c0 + tid] = cvs[0][c_leaf[tid]];
+    out[n_chunks + c0 + tid] = cvs[1][c_leaf[tid]];
   }
-}
-
-template <int T>
-int launch(const void* words, const void* lengths, void* out, int rows,
-           int row_words, cudaStream_t stream) {
-  const int rows_per_block = T / (row_words / kLeafWords);
-  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  blake3_kernel<T><<<blocks, T, 0, stream>>>(
-      (const uint32_t*)words, (const int32_t*)lengths, (uint32_t*)out, rows,
-      row_words);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out: (2, rows) u32, row 0 = digest words 0 (lo), row 1 = words 1 (hi)
-extern "C" int lt_blake3(const void* words, const void* lengths, void* out,
-                         int rows, int row_words, void* stream) {
-  const int leaves = row_words / kLeafWords;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (leaves <= 64) return launch<64>(words, lengths, out, rows, row_words, s);
-  if (leaves <= 128) return launch<128>(words, lengths, out, rows, row_words, s);
-  if (leaves <= 256) return launch<256>(words, lengths, out, rows, row_words, s);
-  if (leaves <= 512) return launch<512>(words, lengths, out, rows, row_words, s);
-  return launch<1024>(words, lengths, out, rows, row_words, s);
+// out: (2, n_chunks) u32, row 0 = digest words 0 (lo), row 1 = words 1
+// (hi); plan: (n_blocks + 1,) first chunk of each block (plan_blocks)
+extern "C" int lt_blake3(const void* bytes, long long n_bytes,
+                         const void* starts, const void* sizes,
+                         const void* plan, void* out, int n_chunks,
+                         int n_blocks, void* stream) {
+  if (n_blocks > 0) {
+    blake3_kernel<<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)bytes, (const int32_t*)starts,
+        (const int32_t*)sizes, (const int32_t*)plan, (uint32_t*)out,
+        n_chunks, n_bytes);
+  }
+  return (int)cudaGetLastError();
 }

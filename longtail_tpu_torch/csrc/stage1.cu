@@ -9,29 +9,57 @@
 // 47 <= p - part_start < length[part], and reduces the candidate ends
 // (p + 1, absolute in the batch) of each Z-byte segment to
 // (min1, min2, cnt): the two smallest ends and the count.
-//   Bound on the H100: the byte stream is read once (64 MiB per batch);
-// the work per byte is a table lookup and ~6 integer operations plus one
-// 32-bit modulo.  Design: one block of 256 threads per 4 KiB tile; the
-// tile and its 47-byte halo are mapped through the 256-entry table into
-// shared memory once, then each thread computes its first position's
-// hash with all 48 taps and slides over 15 more positions with the
-// recurrence h' = rotl(h,1) ^ rotl(T[out], 48 mod 32) ^ T[in].  The table
-// values are stored with one padding word every 16 so that the threads'
-// stride-16 reads fall into distinct banks.  A shared-memory tree merges
-// the per-thread (min1, min2, cnt) of each segment.  Positions of a part
-// before WINDOW-1 are masked, so a window never needs the previous
-// part's bytes.
+//   Bound on the H100: integer operations.  The byte stream is read once
+// (64 MiB per batch, ~0.02 ms); the work per byte is the rolling update
+// (two rotates and a 3-input xor) and the candidate test.  Design, per
+// byte: 2 shared loads without bank conflicts, one address (a PRMT and an
+// add, used again for the outgoing lookup 48 positions later), a rotate,
+// a LOP3, an IMAD and half a 3-input min:
+//  - Runs.  Each thread scans 256 consecutive bytes (kRun), read straight
+//    from global memory as 16-byte words, and hashes the 48 bytes before
+//    its run once (the warm-up, ~0.5 operations per byte of its run).
+//    It then slides with h' = rotl(h, 1) ^ T16[out] ^ T[in], where T16 =
+//    rotl(T, 48 mod 32) saves the outgoing byte's rotate.  The outgoing
+//    bytes are the 16-byte word loaded three words earlier, kept in
+//    registers.  A run is one anchor bin (4 * LT_BIN_WORDS bytes).
+//  - Lookups.  Shared memory holds T and T16 in 32 copies, one per lane:
+//    value v of lane l at word 64 v + l (T16 at + 32), 64 KiB.  Each lane
+//    reads only its own bank, so no lookup conflicts; one PRMT builds the
+//    address v * 256 + 4 l from the data word and the lane's offset.  A
+//    block's thread v fills value v's 64 words, in an order that keeps a
+//    warp's stores in distinct banks.
+//  - The candidate test without a division.  h % d == d - 1 is (h + 1) % d
+//    == 0.  With d = d0 * 2^s (d0 odd), inv = d0^-1 mod 2^32 and lim =
+//    (2^32 - 1) / d (host constants, stage1.py scan_constants), n < 2^32
+//    is a multiple of d iff r = rotr(n * inv, s) <= lim.  Per position:
+//    one IMAD (h * inv + inv), a funnel shift where d is even (kRot) and
+//    a running unsigned min of r; per 16 positions one compare of that
+//    min against lim and a branch, taken only by the groups that hold a
+//    candidate (~16 / d of them), to a loop that slides over the 16
+//    positions again and records the candidates.  h = 2^32 - 1 (n wraps
+//    to 0, r = 0) also takes the branch, but is a candidate only when d
+//    is a power of two (inv = 1); the loop checks it.  The only division
+//    is the part index, once per thread.
+//  - Segments.  Z is a power of two in [128, 4096].  A thread writes the
+//    summaries of the segments inside its run (Z <= 256); for Z > 256 the
+//    Z / 256 threads of a segment (consecutive lanes of one warp) merge
+//    with shuffles.  No shared-memory staging or merge tree.
+// Positions of a part before WINDOW-1 are masked, so the bytes before a
+// part's first run (the previous part's, or zeros before the batch) enter
+// the warm-up and leave through the outgoing lookups without reaching a
+// result.  Blocks are 256 threads (64 KiB of bytes); a batch need only be
+// a multiple of 4096 bytes, and the threads of the last block past its end
+// take no work.
 //   With a bins pointer the same launch also emits the fast compression
 // tier's per-256-byte-bin anchor samples (device_match
 // bin_mins_from_words; stage1.py _make_scan_kernel with_anchors): for
 // every word w of the batch the 8-byte-gram hash of words w and w + 1 of
 // the flat batch (0 after its last word), packed as (hash & ~63) |
-// (w mod 64), and the minimum over each bin's 64 words.  Each thread
-// takes 4 consecutive words (one 16-byte load, plus the next word, which
-// for the tile's last thread lies in the next tile), and 16 threads
-// reduce a bin with shuffles.  The Pallas kernel reads its tile's first
-// word as the next word of the tile's last gram; this kernel follows the
-// XLA definition instead.
+// (w mod 64), and the minimum over each bin's 64 words.  A thread's run
+// is one bin, so it hashes the words it already holds, plus the first
+// word of the next run.  The Pallas kernel reads its tile's first word as
+// the next word of the tile's last gram; this kernel follows the XLA
+// definition instead.
 //
 // lt_stage1_walk replaces stage1.py _make_walk_kernel.  It computes what
 // the sequential min/max walk (Longtail_HPCDCNextChunk semantics) of
@@ -82,129 +110,235 @@
 namespace {
 
 constexpr int kWindow = LT_HPCDC_WINDOW;
-constexpr int kTile = 4096;                 // bytes per scan block
-constexpr int kScanThreads = 256;
-constexpr int kRun = kTile / kScanThreads;  // consecutive positions per thread
-constexpr int kHalo = kWindow - 1;
-constexpr int kTv = kHalo + kTile;          // table values per block
 constexpr int32_t kBig = 0x7fffffff;
 constexpr int kBinWords = LT_BIN_WORDS;     // words per anchor bin
-constexpr int kBinThreads = kBinWords / 4;  // threads per bin
-static_assert(kTile % (4 * kBinWords) == 0 && kBinThreads <= 32 &&
-                  (kBinThreads & (kBinThreads - 1)) == 0,
-              "a bin is whole 4-word runs of one warp");
-
-__device__ __forceinline__ int skew(int i) { return i + (i >> 4); }
+constexpr int kScanThreads = 256;
+constexpr int kRun = 4 * kBinWords;         // bytes a thread scans: one bin
+constexpr int kGroup = 16;                  // positions per 16-byte load
+constexpr int kGroups = kRun / kGroup;
+constexpr int kHaloGroups = kWindow / kGroup;   // loads the window spans
+constexpr long long kScanTile = (long long)kScanThreads * kRun;
+constexpr int kTabStride = 64;              // words per byte value: T x 32, T16 x 32
+constexpr int kScanSmem = 256 * kTabStride * 4;
+static_assert(kWindow % kGroup == 0 && kRun % kGroup == 0,
+              "the window and a run are whole 16-byte loads");
+static_assert(4096 % kRun == 0, "parts (stage1.py SCAN_TILE) are whole runs");
+// Blocks per SM the scan is compiled for: its 64 KiB tables allow 3.
+#ifndef LT_SCAN_BLOCKS_PER_SM
+#define LT_SCAN_BLOCKS_PER_SM 3
+#endif
+// The experiments of tools/profile_torch_codecs.py --kernel-variants are
+// builds with one of LT_VARIANT_NO_LOADS (the byte stream made in
+// registers), LT_VARIANT_NO_LOOKUPS (the table lookups replaced by
+// arithmetic) or LT_VARIANT_NO_FILL (the table fill skipped) defined, or
+// another LT_SCAN_BLOCKS_PER_SM; each removes one part of the work and
+// computes wrong results.  LT_VARIANT_ODD_FILTER keeps the results but
+// filters on n * inv <= (lim << s) | (2^s - 1), which every multiple of
+// d0 passes (~16 / d0 of the groups), without the funnel shift.  The
+// library defines none.
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);          // r taken mod 32
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const uint8_t* __restrict__ bytes,
+// the lane's copy of the table entry of byte K of w: v * 256 + lane * 4
+template <int K>
+__device__ __forceinline__ uint32_t lookup(const uint32_t* tab, uint32_t w,
+                                           uint32_t lane4) {
+  const uint32_t off = __byte_perm(w, lane4, 0x5504u | (K << 4));
+#ifdef LT_VARIANT_NO_LOOKUPS
+  return off * 2654435761u + (uint32_t)(size_t)tab;
+#else
+  return *reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const char*>(tab) + off);
+#endif
+}
+
+// the key whose running min over 16 positions is held against the filter
+template <bool kRot>
+__device__ __forceinline__ uint32_t filter_key(uint32_t n, int shift) {
+  return kRot ? __funnelshift_r(n, n, shift) : n;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// the anchor gram of word v and its successor, packed with its index
+__device__ __forceinline__ uint32_t gram(uint32_t v, uint32_t next, int k) {
+  const uint32_t h = (v * (uint32_t)LT_GRAM_H0) ^
+                     ((next * (uint32_t)LT_GRAM_H1) >> 13) ^ (next << 7);
+  return (h & ~(uint32_t)(kBinWords - 1)) | (uint32_t)(k & (kBinWords - 1));
+}
+
+struct Summary {
+  int32_t m1 = kBig, m2 = kBig, c = 0;
+  __device__ void add(int32_t e) {          // ends arrive in order
+    if (m1 == kBig) {
+      m1 = e;
+    } else if (m2 == kBig) {
+      m2 = e;
+    }
+    ++c;
+  }
+  __device__ void merge(int32_t b1, int32_t b2, int32_t bc) {
+    const int32_t a1 = m1, a2 = m2;
+    m1 = min(a1, b1);
+    m2 = min(max(a1, b1), min(a2, b2));
+    c += bc;
+  }
+  __device__ void store(int32_t* min1, int32_t* min2, int32_t* cnt,
+                        long long seg) const {
+    min1[seg] = m1;
+    min2[seg] = m2;
+    cnt[seg] = c;
+  }
+};
+
+template <bool kBins, bool kRot>
+__global__ void __launch_bounds__(kScanThreads, LT_SCAN_BLOCKS_PER_SM)
+scan_kernel(const uint8_t* __restrict__ bytes, long long n_bytes,
             const int32_t* __restrict__ lengths,
             const uint32_t* __restrict__ table,
             int32_t* __restrict__ min1, int32_t* __restrict__ min2,
             int32_t* __restrict__ cnt, uint32_t* __restrict__ bins,
-            int part_bytes, int z, uint32_t d) {
-  __shared__ uint32_t tab[256];
-  __shared__ uint32_t tv[kTv + kTv / 16 + 1];
-  __shared__ int32_t r1[kScanThreads], r2[kScanThreads], rc[kScanThreads];
-
+            int part_bytes, int lgz, uint32_t inv, uint32_t lim,
+            int shift) {
+#ifdef LT_VARIANT_ODD_FILTER
+  const uint32_t filt = kRot ? lim : (lim << shift) | ((1u << shift) - 1u);
+#else
+  const uint32_t filt = lim;                // exact: kRot wherever shift > 0
+#endif
+  extern __shared__ uint32_t scan_tab[];
   const int tid = threadIdx.x;
-  const long long tile0 = (long long)blockIdx.x * kTile;
-  tab[tid] = table[tid];
-  __syncthreads();
-
-  // tv[i] = T[x[tile0 - kHalo + i]]; the tile itself is read as words
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(bytes + tile0);
-  for (int w = tid; w < kTile / 4; w += kScanThreads) {
-    const uint32_t v = words[w];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      tv[skew(kHalo + 4 * w + k)] = tab[(v >> (8 * k)) & 0xffu];
+  const uint32_t lane4 = (uint32_t)(tid & 31) * 4u;
+  {
+    // thread v writes value v's 64 words, lane copy (j + v) mod 32 at
+    // step j, so that a warp's stores fall into 32 distinct banks
+    static_assert(kScanThreads == 256, "one thread per table value");
+    const uint32_t t = __ldg(table + tid), t16 = rotl(t, kWindow);
+    uint32_t* row = scan_tab + tid * kTabStride;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      const int c = (j + tid) & 31;
+#ifdef LT_VARIANT_NO_FILL
+      if (t == 1u) row[c] = t16;
+#else
+      row[c] = t;
+      row[32 + c] = t16;
+#endif
     }
   }
-  if (tid < kHalo) {
-    const long long p = tile0 - kHalo + tid;
-    tv[skew(tid)] = p >= 0 ? tab[bytes[p]] : 0u;
-  }
   __syncthreads();
 
-  const int part = (int)(tile0 / part_bytes);
-  const int len = lengths[part];
-  const int tile_in_part = (int)(tile0 - (long long)part * part_bytes);
-  const int j0 = tid * kRun;
-
-  uint32_t h = 0;
+  const long long start = blockIdx.x * kScanTile + (long long)tid * kRun;
+  const bool live = start < n_bytes;        // the last block may be partial
+  const int z = 1 << lgz;
+  Summary s;
+  if (live) {
+    const int part = (int)(start / part_bytes);
+    const int len = lengths[part];
+    const int pos0 = (int)(start - (long long)part * part_bytes);
+    const uint4* src = reinterpret_cast<const uint4*>(bytes + start);
+    // ring[k & 3] holds load k of the run; k = -3..-1 are the window's
+    // bytes before it (zeros before the batch)
+    uint4 ring[4];
 #pragma unroll
-  for (int i = 0; i < kWindow; ++i) h ^= rotl(tv[skew(j0 + kHalo - i)], i);
-
-  int32_t m1 = kBig, m2 = kBig, c = 0;
-#pragma unroll
-  for (int k = 0; k < kRun; ++k) {
-    const int j = j0 + k;
-    if (k > 0) {
-      h = rotl(h, 1) ^ rotl(tv[skew(j - 1)], kWindow) ^ tv[skew(j + kHalo)];
+    for (int k = -kHaloGroups; k < 0; ++k) {
+      ring[k & 3] = start > 0 ? src[k] : make_uint4(0u, 0u, 0u, 0u);
     }
-    const int pos_in_part = tile_in_part + j;
-    if (h % d == d - 1u && pos_in_part >= kHalo && pos_in_part < len) {
-      const int32_t e = (int32_t)(tile0 + j + 1);
-      if (m1 == kBig) {
-        m1 = e;
-      } else if (m2 == kBig) {
-        m2 = e;
+    // warm-up: h = H(start - 1) = XOR_i rotl(T[x[start - 1 - i]], i)
+    uint32_t h = 0;
+#pragma unroll
+    for (int k = -kHaloGroups; k < 0; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t w = word_of(ring[k & 3], q);
+        const int at = -kGroup * k - 4 * q - 1;   // start - 1 - its position
+        h ^= rotl(lookup<0>(scan_tab, w, lane4), at) ^
+             rotl(lookup<1>(scan_tab, w, lane4), at - 1) ^
+             rotl(lookup<2>(scan_tab, w, lane4), at - 2) ^
+             rotl(lookup<3>(scan_tab, w, lane4), at - 3);
       }
-      ++c;
     }
-  }
-
-  // merge the (min1, min2, cnt) of the z / kRun threads of each segment
-  r1[tid] = m1;
-  r2[tid] = m2;
-  rc[tid] = c;
-  __syncthreads();
-  const int group = z / kRun;
-  for (int s = group / 2; s > 0; s >>= 1) {
-    if ((tid & (group - 1)) < s) {
-      const int32_t a1 = r1[tid], a2 = r2[tid];
-      const int32_t b1 = r1[tid + s], b2 = r2[tid + s];
-      r1[tid] = min(a1, b1);
-      r2[tid] = min(max(a1, b1), min(a2, b2));
-      rc[tid] += rc[tid + s];
-    }
-    __syncthreads();
-  }
-  if ((tid & (group - 1)) == 0) {
-    const long long seg = (tile0 + j0) / z;
-    min1[seg] = r1[tid];
-    min2[seg] = r2[tid];
-    cnt[seg] = rc[tid];
-  }
-
-  if (bins != nullptr) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(bytes);
-    const long long w0 = tile0 / 4 + 4 * tid;   // this thread's first word
-    const long long n_words = (long long)gridDim.x * (kTile / 4);
-    const uint4 q = reinterpret_cast<const uint4*>(w + w0)[0];
-    const uint32_t v[5] = {q.x, q.y, q.z, q.w,
-                           w0 + 4 < n_words ? w[w0 + 4] : 0u};
-    uint32_t best = 0xffffffffu;
+    uint32_t best = 0xffffffffu, prev = 0u;
+    uint4 next = src[0];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t h = (v[k] * (uint32_t)LT_GRAM_H0) ^
-                         ((v[k + 1] * (uint32_t)LT_GRAM_H1) >> 13) ^
-                         (v[k + 1] << 7);
-      const uint32_t packed = (h & ~(uint32_t)(kBinWords - 1)) |
-                              (uint32_t)((4 * tid + k) & (kBinWords - 1));
-      best = min(best, packed);
-    }
+    for (int g = 0; g < kGroups; ++g) {
+      const uint4 cur = next;
+#ifdef LT_VARIANT_NO_LOADS
+      next = make_uint4(cur.x * 747796405u + g, cur.y ^ cur.x, cur.z + cur.y,
+                        cur.w ^ cur.z);
+#else
+      if (g + 1 < kGroups) next = src[g + 1];
+#endif
+      const uint4 out = ring[(g - kHaloGroups) & 3];
+      const uint32_t h0 = h;
+      // n = (h + 1) * inv; the min of its key over the 16 positions
+      // against filt lets through every group with a multiple of d
+      uint32_t nmin = 0xffffffffu;
 #pragma unroll
-    for (int o = kBinThreads / 2; o > 0; o >>= 1) {
-      best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t wi = word_of(cur, q), wo = word_of(out, q);
+#define LT_SCAN_STEP(K)                                                  \
+  h = rotl(h, 1) ^ lookup<K>(scan_tab + 32, wo, lane4) ^                 \
+      lookup<K>(scan_tab, wi, lane4);                                    \
+  nmin = min(nmin, filter_key<kRot>(h * inv + inv, shift));
+        LT_SCAN_STEP(0)
+        LT_SCAN_STEP(1)
+        LT_SCAN_STEP(2)
+        LT_SCAN_STEP(3)
+#undef LT_SCAN_STEP
+        if (kBins) {
+          const int k = 4 * g + q;          // word index in the run
+          if (k > 0) best = min(best, gram(prev, wi, k - 1));
+          prev = wi;
+        }
+      }
+      if (nmin <= filt) {
+        // rare: slide again from h0, one position at a time, with the
+        // exact test
+        uint32_t hh = h0;
+#pragma unroll 1
+        for (int k = 0; k < kGroup; ++k) {
+          const int sh = 8 * (k & 3);
+          const uint32_t vi = (word_of(cur, k >> 2) >> sh) & 0xffu;
+          const uint32_t vo = (word_of(out, k >> 2) >> sh) & 0xffu;
+          hh = rotl(hh, 1) ^ scan_tab[vo * kTabStride + 32 + (lane4 >> 2)] ^
+               scan_tab[vi * kTabStride + (lane4 >> 2)];
+          const uint32_t n = hh * inv + inv;
+          const uint32_t r = __funnelshift_r(n, n, shift);
+          const int p = pos0 + kGroup * g + k;
+          if (r <= lim && (r != 0u || inv == 1u) && p >= kWindow - 1 &&
+              p < len) {
+            s.add((int32_t)(start + kGroup * g + k + 1));
+          }
+        }
+      }
+      ring[g & 3] = cur;
+      if (z <= kRun && ((kGroup * (g + 1)) & (z - 1)) == 0) {
+        s.store(min1, min2, cnt, ((start + kGroup * (g + 1)) >> lgz) - 1);
+        s = Summary();
+      }
     }
-    if ((tid & (kBinThreads - 1)) == 0) {
-      bins[tile0 / (4 * kBinWords) + tid / kBinThreads] = best;
+    if (kBins) {
+      const long long after = start + kRun;
+      const uint32_t nxt =
+          after < n_bytes ? *reinterpret_cast<const uint32_t*>(bytes + after)
+                          : 0u;
+      best = min(best, gram(prev, nxt, kBinWords - 1));
+      bins[start / kRun] = best;
+    }
+  }
+  if (z > kRun) {
+    // the z / kRun threads of a segment are consecutive lanes of one warp
+    for (int o = z / kRun / 2; o > 0; o >>= 1) {
+      s.merge(__shfl_xor_sync(0xffffffffu, s.m1, o),
+              __shfl_xor_sync(0xffffffffu, s.m2, o),
+              __shfl_xor_sync(0xffffffffu, s.c, o));
+    }
+    if (live && (start & (z - 1)) == 0) {
+      s.store(min1, min2, cnt, start >> lgz);
     }
   }
 }
@@ -217,7 +351,21 @@ constexpr uint32_t kPos = 0x7fffffffu;      // a state's part-local end
 constexpr uint32_t kAmbFlag = 0x80000000u;  // the min2 of a segment with 3+ candidates
 static_assert(kWalkSmem + 1024 <= 232448, "shared memory of one block");
 constexpr int kMaxDevices = 64;
-std::atomic<bool> walk_smem_raised[kMaxDevices];  // per device, once
+// the dynamic shared-memory attribute, set once per device and kernel
+std::atomic<bool> walk_smem_raised[kMaxDevices];
+std::atomic<bool> scan_smem_raised[4][kMaxDevices];
+
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, int bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev].load()) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
+  return e;
+}
 
 __device__ __forceinline__ int warp_sum(int x) {
 #pragma unroll
@@ -457,17 +605,33 @@ walk_kernel(const int32_t* __restrict__ lengths,
 
 }  // namespace
 
-// bins: NULL, or (n_bytes / 256,) u32 anchor bin-mins
+// bins: NULL, or (n_bytes / 256,) u32 anchor bin-mins.  n_bytes and
+// part_bytes are multiples of 4096, bytes 16-byte aligned; inv, lim and
+// shift are stage1.py scan_constants(d).
 extern "C" int lt_stage1_scan(const void* bytes, const void* lengths,
                               const void* table, void* min1, void* min2,
                               void* cnt, void* bins, long long n_bytes,
-                              int part_bytes, int z, uint32_t d,
-                              void* stream) {
-  const unsigned blocks = (unsigned)(n_bytes / kTile);
-  scan_kernel<<<blocks, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int32_t*)lengths,
+                              int part_bytes, int lgz, uint32_t inv,
+                              uint32_t lim, int shift, void* stream) {
+  const bool with_bins = bins != nullptr;
+#ifdef LT_VARIANT_ODD_FILTER
+  const bool rot = false;
+#else
+  const bool rot = shift != 0;
+#endif
+  const int variant = 2 * (int)with_bins + (int)rot;
+  decltype(&scan_kernel<false, false>) const kernels[4] = {
+      scan_kernel<false, false>, scan_kernel<false, true>,
+      scan_kernel<true, false>, scan_kernel<true, true>};
+  const auto kernel = kernels[variant];
+  const cudaError_t e =
+      raise_smem(kernel, kScanSmem, scan_smem_raised[variant]);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((n_bytes + kScanTile - 1) / kScanTile);
+  kernel<<<blocks, kScanThreads, kScanSmem, (cudaStream_t)stream>>>(
+      (const uint8_t*)bytes, n_bytes, (const int32_t*)lengths,
       (const uint32_t*)table, (int32_t*)min1, (int32_t*)min2, (int32_t*)cnt,
-      (uint32_t*)bins, part_bytes, z, d);
+      (uint32_t*)bins, part_bytes, lgz, inv, lim, shift);
   return (int)cudaGetLastError();
 }
 
@@ -480,16 +644,8 @@ extern "C" int lt_stage1_walk(const void* lengths, const void* min1,
                               int n_parts, int part_bytes, int seg_per_part,
                               int lgz, int min_size, int max_size, int c_pad,
                               void* stream) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = raise_smem(walk_kernel, kWalkSmem, walk_smem_raised);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices || !walk_smem_raised[dev].load()) {
-    e = cudaFuncSetAttribute(walk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kWalkSmem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < kMaxDevices) walk_smem_raised[dev].store(true);
-  }
   walk_kernel<<<(unsigned)n_parts, kWalkThreads, kWalkSmem,
                 (cudaStream_t)stream>>>(
       (const int32_t*)lengths, (const int32_t*)min1, (const int32_t*)min2,

@@ -11,12 +11,16 @@ chunk/content hash (lib/blake3/longtail_blake3.c:81-102).
 lane math: every 1 KiB leaf of every row is a lane, the 16 block
 compressions run as masked lane updates and the tree merges adjacent
 pairs level by level (an odd tail carries up).  torch has no unsigned
-32-bit arithmetic, so words ride as int64 masked to 32 bits.  It is the
-plain version of the CUDA kernel in ``blake3_kernel.py`` and has its
+32-bit arithmetic, so words ride as int64 masked to 32 bits.  Its
 contract: words ``(rows, padded/4)`` int32, little-endian and zero past
 each row's length, with a power-of-two leaf count per row; lengths
 ``(rows,)``; returns ``(lo, hi)``, each ``(rows,)`` int32 holding the u32
 digest words.  The host ``hash_chunks`` runs it on the CPU.
+
+``hash_chunks_batch`` is the plain version of the CUDA kernel in
+``blake3_kernel.py``: the digests of chunks given by start and size in a
+flat byte batch, through ``ops.pack.pack_plain`` and ``hash_chunks_words``
+per power-of-two class.  ``plan_blocks`` is the kernel's host work plan.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import struct
 
 import numpy as np
 import torch
+
+from longtail_tpu_torch.ops.pack import pack_plain
 
 IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
@@ -222,6 +228,58 @@ def hash_chunks_words(words: torch.Tensor, lengths: torch.Tensor):
         count = (count + 1) // 2
         width = half
     return to_int32(cvs[0][:, 0]), to_int32(cvs[1][:, 0])
+
+# the batch kernel's geometry (csrc/blake3.cu): a block has BLOCK_LEAVES
+# threads and takes the chunks whose first leaf falls in its range of
+# BLOCK_LEAVES leaves; a chunk has at most MAX_LEAVES leaves
+BLOCK_LEAVES = 128
+MAX_LEAVES = 1024
+
+
+def leaves_of(sizes: np.ndarray) -> np.ndarray:
+    """Leaves of each chunk, max(1, ceil(size / 1 KiB)); raises past
+    MAX_LEAVES."""
+    leaves = np.maximum(-(-np.asarray(sizes, np.int64) // LEAF_BYTES), 1)
+    if len(leaves) and leaves.max() > MAX_LEAVES:
+        raise ValueError(f"a chunk of {int(leaves.max())} leaves exceeds "
+                         f"the kernel's {MAX_LEAVES}")
+    return leaves
+
+
+def plan_blocks(leaves: np.ndarray) -> np.ndarray:
+    """The kernel's work plan: (n_blocks + 1,) int32, the first chunk of
+    each block, then the chunk count.  Block b takes the chunks (whole,
+    in order) whose first leaf lies in [b, b + 1) * BLOCK_LEAVES, so it
+    holds at most BLOCK_LEAVES chunks and BLOCK_LEAVES - 1 + MAX_LEAVES
+    leaves; ranges where no chunk starts get no block.  Any upper bounds
+    of the chunks' leaves give a valid plan."""
+    leaves = np.asarray(leaves, np.int64)
+    first_leaf = np.cumsum(leaves) - leaves
+    blk = first_leaf // BLOCK_LEAVES
+    firsts = np.flatnonzero(np.diff(blk, prepend=-1))
+    return np.append(firsts, len(leaves)).astype(np.int32)
+
+
+def hash_chunks_batch(batch: torch.Tensor, starts: torch.Tensor,
+                      sizes: torch.Tensor):
+    """Plain BLAKE3-64 of chunks of a flat batch: (batch uint8, starts,
+    sizes (n,) int32) -> (lo, hi), each (n,) int32, in chunk order.
+    Chunks are grouped by power-of-two leaf count and each group hashed
+    as packed rows."""
+    n = starts.numel()
+    leaves = torch.from_numpy(leaves_of(sizes.cpu().numpy()))
+    cls = torch.ones_like(leaves)
+    while bool((cls < leaves).any()):
+        cls = torch.where(cls < leaves, 2 * cls, cls)
+    out = torch.zeros((2, n), dtype=torch.int32, device=batch.device)
+    for c in torch.unique(cls).tolist():
+        idx = torch.nonzero(cls == c).flatten().to(batch.device)
+        sz = sizes[idx]
+        lo, hi = hash_chunks_words(
+            pack_plain(batch, starts[idx], sz, c * LEAF_BYTES), sz)
+        out[0, idx], out[1, idx] = lo, hi
+    return out[0], out[1]
+
 
 def hash_chunks(data_u8, lengths) -> np.ndarray:
     """Batched host hashing: (lanes, padded) uint8 rows, zero past each

@@ -1,42 +1,90 @@
 """BLAKE3-64 chunk hashing on the card: the wrapper of ``csrc/blake3.cu``.
 
-The counterpart of ``longtail_tpu/ops/blake3_kernel.py``
-(``hash_chunks_words_device``).  For a CPU tensor the wrapper computes
-the plain version, ``ops.blake3.hash_chunks_words``; for a CUDA tensor it
-launches the kernel or raises.
+The counterpart of ``longtail_tpu/ops/blake3_kernel.py``.  One kernel
+hashes chunks where they lie in a flat byte batch:
+
+- ``hash_chunks_device(batch, starts, sizes, plan)``: every chunk of a
+  resident batch in one launch, with ``plan`` from
+  ``ops.blake3.plan_blocks`` (the pipeline's stage 3);
+- ``hash_chunks_words_device(words, lengths)``: packed rows, the JAX
+  package's entry of that name, as chunks starting at each row.
+
+For a CPU tensor each wrapper computes the plain version
+(``ops.blake3.hash_chunks_batch``, ``hash_chunks_words``); for a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from longtail_tpu_torch import _kernels
-from longtail_tpu_torch.ops.blake3 import hash_chunks_words, leaves_per_row
+from longtail_tpu_torch.ops.blake3 import (
+    MAX_LEAVES,
+    hash_chunks_batch,
+    hash_chunks_words,
+    leaves_per_row,
+    plan_blocks,
+)
 
 SOURCE = "longtail_tpu_torch/csrc/blake3.cu"
-REPLACES = "longtail_tpu/ops/blake3_kernel.py:216"
+REPLACES = "longtail_tpu/ops/blake3_kernel.py:217"
+
+
+def hash_chunks_device(batch: torch.Tensor, starts: torch.Tensor,
+                       sizes: torch.Tensor, plan: torch.Tensor):
+    """BLAKE3-64 of chunks [starts[i], starts[i] + sizes[i]) of the flat
+    uint8 batch: starts, sizes (n,) int32, plan the int32 output of
+    plan_blocks over (upper bounds of) the chunks' leaves -> (lo, hi),
+    each (n,) int32, in chunk order."""
+    if batch.device.type == "cpu":
+        return hash_chunks_batch(batch, starts, sizes)
+    n = starts.numel()
+    dev = batch.device
+    _kernels.require("batch", batch, torch.uint8)
+    _kernels.require("starts", starts, torch.int32, (n,), dev)
+    _kernels.require("sizes", sizes, torch.int32, (n,), dev)
+    _kernels.require("plan", plan, torch.int32, device=dev)
+    if batch.dim() != 1 or batch.numel() % 16 or batch.data_ptr() % 16:
+        raise ValueError("batch: a 1-D byte tensor of 16-byte aligned "
+                         "16-byte words is needed")
+    if plan.dim() != 1 or plan.numel() < 1:
+        raise ValueError("plan: (n_blocks + 1,) int32 from plan_blocks")
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            rc = _kernels.load().lt_blake3(
+                batch.data_ptr(), batch.numel(), starts.data_ptr(),
+                sizes.data_ptr(), plan.data_ptr(), out.data_ptr(), n,
+                plan.numel() - 1, _kernels.stream_of(batch))
+        _kernels.check(rc, "lt_blake3")
+        _kernels.count_launch(hash_chunks_device)
+    return out[0], out[1]
+
+
+hash_chunks_device.LAUNCHES = 0
 
 
 def hash_chunks_words_device(words: torch.Tensor, lengths: torch.Tensor):
     """BLAKE3-64 of each row: words (rows, padded/4) int32, zero past each
-    row's length, lengths (rows,) int32 -> (lo, hi), each (rows,) int32."""
+    row's length, lengths (rows,) int32 -> (lo, hi), each (rows,) int32.
+    The batch kernel on the rows' bytes, row r a chunk at r * padded,
+    planned from the row's leaf count (no read of the lengths)."""
     if words.device.type == "cpu":
         return hash_chunks_words(words, lengths)
     rows, row_words = words.shape
-    if leaves_per_row(row_words) > 1024:
+    leaves = leaves_per_row(row_words)
+    if leaves > MAX_LEAVES:
         raise ValueError(f"rows of {row_words * 4} bytes exceed the kernel's "
-                         "1024 leaves")
+                         f"{MAX_LEAVES} leaves")
+    if rows * row_words * 4 >= 2**31:
+        raise ValueError("rows: the kernel's starts are int32")
     _kernels.require("words", words, torch.int32)
     _kernels.require("lengths", lengths, torch.int32, (rows,), words.device)
-    out = torch.empty((2, rows), dtype=torch.int32, device=words.device)
-    if rows:
-        with torch.cuda.device(words.device):
-            rc = _kernels.load().lt_blake3(
-                words.data_ptr(), lengths.data_ptr(), out.data_ptr(), rows,
-                row_words, _kernels.stream_of(words))
-        _kernels.check(rc, "lt_blake3")
-        _kernels.count_launch(hash_chunks_words_device)
-    return out[0], out[1]
-
-
-hash_chunks_words_device.LAUNCHES = 0
+    dev = words.device
+    starts = torch.arange(0, rows * row_words * 4, row_words * 4,
+                          dtype=torch.int32, device=dev)
+    plan = torch.from_numpy(plan_blocks(np.full(rows, leaves))).to(dev)
+    return hash_chunks_device(words.view(-1).view(torch.uint8), starts,
+                              lengths, plan)

@@ -7,12 +7,15 @@ stream through three stages:
 - **Stage 1 (device)**: the scan and walk kernels (``parallel/stage1.py``)
   resolve every part's chunk boundaries; only the walk output
   ``(lanes, c_pad + 2)`` int32 comes back to the host.
-- **Stage 2 (host plan)**: chunks are grouped by power-of-two padded size
-  class, and a lane flagged ambiguous is re-chunked exactly on the host.
-- **Stage 3 (device)**: per class, the pack kernel copies the chunks'
-  bytes out of the resident batch into aligned word rows and the BLAKE3
-  or BLAKE2 kernel (``ops/blake3_kernel.py``, ``ops/blake2_kernel.py``)
-  hashes them; the digests of all classes come back in one copy.
+- **Stage 2 (host plan)**: a lane flagged ambiguous is re-chunked
+  exactly on the host, and stage 3 is planned: the BLAKE3 kernel's work
+  plan, or BLAKE2's power-of-two size classes.
+- **Stage 3 (device)**: BLAKE3 (``ops/blake3_kernel.py``) hashes every
+  chunk of the batch in one launch, reading its bytes from the resident
+  batch; BLAKE2 (``ops/blake2_kernel.py``) runs per size class, after
+  the pack kernel (``ops/pack.py``) has copied the class's chunks into
+  aligned word rows.
+  The digests come back in one copy.
 - **Stage 4 (device, optional)**: ``submit_compress`` finds LZ match
   anchors per block of the resident batch (``parallel/device_match.py``)
   from the scan's bin-mins (``compress=True``) or from the batch's words,
@@ -38,8 +41,8 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from longtail_tpu_torch import _kernels
-from longtail_tpu_torch.ops import blake2_kernel, blake3_kernel
+from longtail_tpu_torch.ops import blake2_kernel, blake3, blake3_kernel
+from longtail_tpu_torch.ops.pack import pack
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 from longtail_tpu_torch.parallel.device_match import (
     bins_anchors_packed,
@@ -56,12 +59,7 @@ from longtail_tpu_torch.parallel.stage1 import (
 
 _LEAF = 1024
 
-PACK_SOURCE = "longtail_tpu_torch/csrc/pack.cu"
-PACK_REPLACES = "longtail_tpu/parallel/pipeline.py:166"
-
-# the chunk hash of each hash kind: (words, lengths) -> (lo, hi)
-HASHERS = {"blake3": blake3_kernel.hash_chunks_words_device,
-           "blake2": blake2_kernel.hash_chunks_words_device}
+HASH_KINDS = ("blake3", "blake2")
 
 
 def resolve_device(device) -> torch.device:
@@ -74,52 +72,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-# ---------------------------------------------------------------------------
-# pack
-# ---------------------------------------------------------------------------
-
-def pack_plain(batch: torch.Tensor, starts: torch.Tensor,
-               sizes: torch.Tensor, padded: int) -> torch.Tensor:
-    """Plain pack: row r = bytes [starts[r], starts[r] + sizes[r]) of the
-    batch, zero past sizes[r], as (rows, padded/4) little-endian int32."""
-    off = torch.arange(padded, device=batch.device, dtype=torch.int64)
-    idx = (starts.to(torch.int64)[:, None] + off[None, :]).clamp_(
-        max=max(batch.numel() - 1, 0))
-    valid = off[None, :] < sizes.to(torch.int64)[:, None]
-    rows = torch.where(valid, batch[idx], torch.zeros((), dtype=torch.uint8,
-                                                      device=batch.device))
-    return rows.contiguous().view(torch.int32)
-
-
-def pack(batch: torch.Tensor, starts: torch.Tensor, sizes: torch.Tensor,
-         padded: int) -> torch.Tensor:
-    """Pack kernel wrapper; same contract as pack_plain."""
-    if padded % _LEAF:
-        raise ValueError(f"padded {padded} is not a multiple of {_LEAF}")
-    if batch.device.type == "cpu":
-        return pack_plain(batch, starts, sizes, padded)
-    rows = starts.numel()
-    _kernels.require("batch", batch, torch.uint8)
-    _kernels.require("starts", starts, torch.int32, (rows,), batch.device)
-    _kernels.require("sizes", sizes, torch.int32, (rows,), batch.device)
-    if batch.dim() != 1 or batch.numel() % 4 or batch.data_ptr() % 4:
-        raise ValueError("batch: a 1-D, word-aligned byte tensor is needed")
-    out = torch.empty((rows, padded // 4), dtype=torch.int32,
-                      device=batch.device)
-    if rows:
-        with torch.cuda.device(batch.device):
-            rc = _kernels.load().lt_pack(
-                batch.data_ptr(), batch.numel() // 4, starts.data_ptr(),
-                sizes.data_ptr(), out.data_ptr(), rows, padded // 4,
-                _kernels.stream_of(batch))
-        _kernels.check(rc, "lt_pack")
-        _kernels.count_launch(pack)
-    return out
-
-
-pack.LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +151,9 @@ class DevicePartIndexer:
     def __init__(self, target_chunk_size: int, device,
                  batch_bytes: int = 64 << 20, lanes: int | None = None,
                  hash_kind: str = "blake3", compress: bool = False):
-        if hash_kind not in HASHERS:
+        if hash_kind not in HASH_KINDS:
             raise ValueError(f"no device hasher for {hash_kind!r}")
         self.hash_kind = hash_kind
-        self._hash = HASHERS[hash_kind]
         self.compress = compress
         self.device = resolve_device(device)
         self.cfg = ChunkerConfig.from_target(target_chunk_size)
@@ -279,9 +230,9 @@ class DevicePartIndexer:
     # -- stage 2 + 3 ------------------------------------------------------
 
     def plan_hash(self, entry, keep_words: bool = False):
-        """Stage 2: wait for the walk output, repair flagged lanes, group
-        chunks by size class; stage 3: queue pack + hash per class and
-        the async fetch of all digests.
+        """Stage 2: wait for the walk output, repair flagged lanes, plan
+        the hash; stage 3: queue the hash (BLAKE3: one launch; BLAKE2:
+        pack + hash per size class) and the async fetch of all digests.
 
         keep_words=True appends the resident batch viewed as int32 words
         and the scan's bin-mins (or None) to the returned entry, so that
@@ -316,18 +267,44 @@ class DevicePartIndexer:
             else np.zeros(0, np.int64)
         flat_sizes = np.concatenate(all_sizes) if all_sizes \
             else np.zeros(0, np.int64)
-        padded = _pow2_padded(flat_sizes, self._cap, self._floor)
+        if self.hash_kind == "blake3":
+            res, order = self._hash_blake3(dev_rows, flat_starts, flat_sizes)
+        else:
+            res, order = self._hash_classes(dev_rows, flat_starts, flat_sizes)
+        res_host, ev = self._fetch(res)
+        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
+        if keep_words:
+            out += (dev_rows.view(torch.int32), bins)
+        return out
 
-        # one upload: each class's starts then sizes
+    def _hash_blake3(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
+        """Every chunk in one launch of the BLAKE3 kernel, read from the
+        resident batch; one upload of starts, sizes and the work plan.
+        Returns ((2, n) digests, their chunk order: the identity)."""
+        n = len(sizes)
+        plan = blake3.plan_blocks(blake3.leaves_of(sizes))
+        blob = self._host_buffer((2 * n + len(plan),), torch.int32)
+        bnp = blob.numpy()
+        bnp[:n], bnp[n:2 * n], bnp[2 * n:] = starts, sizes, plan
+        blob = self._upload(blob)
+        lo, hi = blake3_kernel.hash_chunks_device(
+            dev_rows, blob[:n], blob[n:2 * n], blob[2 * n:])
+        return torch.stack([lo, hi]), np.arange(n)
+
+    def _hash_classes(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
+        """BLAKE2: per power-of-two size class, pack the class's chunks
+        into aligned rows and hash them; one upload of each class's starts
+        then sizes.  Returns ((2, n) digests, their chunk order)."""
+        padded = _pow2_padded(sizes, self._cap, self._floor)
         classes = [(int(c), np.flatnonzero(padded == c))
                    for c in np.unique(padded)]
-        blob = self._host_buffer((2 * len(flat_sizes),), torch.int32)
+        blob = self._host_buffer((2 * len(sizes),), torch.int32)
         bnp = blob.numpy()
         o = 0
         for _, idx in classes:
             r = len(idx)
-            bnp[o:o + r] = flat_starts[idx]
-            bnp[o + r:o + 2 * r] = flat_sizes[idx]
+            bnp[o:o + r] = starts[idx]
+            bnp[o + r:o + 2 * r] = sizes[idx]
             o += 2 * r
         blob = self._upload(blob)
         res = []
@@ -336,17 +313,14 @@ class DevicePartIndexer:
             r = len(idx)
             st, sz = blob[o:o + r], blob[o + r:o + 2 * r]
             o += 2 * r
-            lo, hi = self._hash(pack(dev_rows, st, sz, cls), sz)
+            lo, hi = blake2_kernel.hash_chunks_words_device(
+                pack(dev_rows, st, sz, cls), sz)
             res.append(torch.stack([lo, hi]))
         res = torch.cat(res, dim=1) if res else torch.zeros(
             (2, 0), dtype=torch.int32, device=self.device)
         order = np.concatenate([idx for _, idx in classes]) if classes \
             else np.zeros(0, np.int64)
-        res_host, ev = self._fetch(res)
-        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
-        if keep_words:
-            out += (dev_rows.view(torch.int32), bins)
-        return out
+        return res, order
 
     # -- stage 4 ----------------------------------------------------------
 

@@ -45,7 +45,9 @@ from longtail_tpu_torch.parallel.device_match import (
 
 WINDOW = CHUNKER_WINDOW_SIZE
 BIG = 2**31 - 1
-SCAN_TILE = 4096        # bytes per scan-kernel block (csrc/stage1.cu)
+# part granularity: whole 256-byte runs of a scan-kernel thread
+# (csrc/stage1.cu) and whole segments (Z <= 4096)
+SCAN_TILE = 4096
 WALK_CAP = 12288        # states a part keeps in the walk kernel's shared memory
 _M = 0xFFFFFFFF
 
@@ -90,6 +92,21 @@ class Stage1Plan:
     def c_pad(self) -> int:
         c = self.part_bytes // (self.cfg.min_size + 1) + 1
         return -(-c // 128) * 128
+
+
+def scan_constants(d: int) -> tuple:
+    """The scan kernel's candidate test for discriminator d, without a
+    division: (inv, lim, shift).  With d = d0 * 2**shift, d0 odd, inv =
+    d0**-1 mod 2**32 and n = (h * inv + inv) mod 2**32, a position is a
+    candidate (h % d == d - 1, i.e. d divides h + 1) iff r = rotr(n,
+    shift) <= lim = (2**32 - 1) // d, except that h = 2**32 - 1 (r = 0)
+    qualifies only when d is a power of two (inv = 1).  The kernel sends
+    a group of positions to that test when the least r of the group is
+    <= lim, so only groups with a candidate (or r = 0) take it."""
+    if not 0 < d <= _M:
+        raise ValueError(f"discriminator {d} is not a positive u32")
+    shift = (d & -d).bit_length() - 1
+    return pow(d >> shift, -1, 2**32), _M // d, shift
 
 
 def hash_table(device) -> torch.Tensor:
@@ -167,7 +184,8 @@ def scan(batch: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor,
             batch.data_ptr(), lengths.data_ptr(), table.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             None if bins is None else bins.data_ptr(), n,
-            plan.part_bytes, plan.z, plan.cfg.discriminator,
+            plan.part_bytes, plan.z.bit_length() - 1,
+            *scan_constants(plan.cfg.discriminator),
             _kernels.stream_of(batch))
     _kernels.check(rc, "lt_stage1_scan")
     _kernels.count_launch(scan)

@@ -36,6 +36,7 @@ from longtail_tpu_torch import _kernels, api, cli  # noqa: E402
 from longtail_tpu_torch.core.indexing import (  # noqa: E402
     create_version_index,
 )
+from longtail_tpu_torch.ops import pack as tpack  # noqa: E402
 from longtail_tpu_torch.parallel import pipeline  # noqa: E402
 from longtail_tpu_torch.parallel.device_chunker import (  # noqa: E402
     ChunkerConfig,
@@ -79,17 +80,17 @@ def test_pack_plain_matches_pallas_pack_interpret():
     sizes = np.array([2048, 2047, 1, 2048, 512, 1025, 2048, 1000], np.int32)
     want = np.asarray(jpipeline.make_pack_fn(padded, rows)(
         words2d, jax.device_put(starts), jax.device_put(sizes)))
-    got = pipeline.pack(torch.from_numpy(data), torch.from_numpy(starts),
-                        torch.from_numpy(sizes), padded)
+    got = tpack.pack(torch.from_numpy(data), torch.from_numpy(starts),
+                     torch.from_numpy(sizes), padded)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
-    assert pipeline.pack.LAUNCHES == 0
+    assert tpack.pack.LAUNCHES == 0
 
 
 def test_pack_plain_zero_rows_and_batch_end():
     data = torch.arange(4096, dtype=torch.int64).to(torch.uint8)
     starts = torch.tensor([4090, 0, 7], dtype=torch.int32)
     sizes = torch.tensor([6, 0, 3], dtype=torch.int32)
-    got = pipeline.pack_plain(data, starts, sizes, 1024).numpy()
+    got = tpack.pack_plain(data, starts, sizes, 1024).numpy()
     b = got.view(np.uint8).reshape(3, 1024)
     np.testing.assert_array_equal(b[0, :6], np.arange(4090, 4096) % 256)
     assert not b[0, 6:].any() and not b[1].any()
@@ -135,6 +136,49 @@ def test_index_stream_matches_host_oracle():
             want = np.array([jblake3.hash64(data[s:e].tobytes())
                              for s, e in zip(starts, ends)], np.uint64)
         np.testing.assert_array_equal(hashes, want)
+
+
+@pytest.mark.parametrize("hash_kind", ["blake3", "blake2"])
+def test_blake3_hashes_the_batch_without_pack(monkeypatch, hash_kind):
+    """plan_hash with BLAKE3 makes one hash_chunks_device call on the
+    resident batch and no pack call, with the digests in chunk order;
+    BLAKE2 still packs each size class.  Both equal the host oracle."""
+    import hashlib
+
+    from longtail_tpu_torch.ops import blake3_kernel
+
+    def blake2_64(data: bytes) -> int:
+        return int.from_bytes(hashlib.blake2s(data, digest_size=8).digest(),
+                              "little")
+
+    calls = {"pack": 0, "batch": 0}
+    pack, batch_hash = pipeline.pack, blake3_kernel.hash_chunks_device
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    monkeypatch.setattr(pipeline, "pack", counted("pack", pack))
+    monkeypatch.setattr(blake3_kernel, "hash_chunks_device",
+                        counted("batch", batch_hash))
+    rng = np.random.default_rng(8)
+    ix = pipeline.DevicePartIndexer(TARGET, "cpu", lanes=2,
+                                    hash_kind=hash_kind)
+    parts = [(i, rng.integers(0, 256, n, dtype=np.uint8))
+             for i, n in enumerate([ix.part_bytes, 5000])]
+    got = list(ix.retire(ix.plan_hash(ix.submit_host(parts))))
+    if hash_kind == "blake3":
+        assert calls == {"pack": 0, "batch": 1}
+    else:
+        assert calls["pack"] >= 1 and calls["batch"] == 0
+    for (_, sizes, hashes), (_, data) in zip(got, parts):
+        ends = np.cumsum(sizes.astype(np.int64))
+        want = [(jblake3.hash64 if hash_kind == "blake3" else
+                 blake2_64)(data[e - s:e].tobytes())
+                for s, e in zip(sizes.astype(np.int64), ends)]
+        np.testing.assert_array_equal(hashes, np.array(want, np.uint64))
 
 
 def test_stage4_anchors_from_bins_equal_words_and_jax():

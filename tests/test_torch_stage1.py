@@ -217,6 +217,49 @@ def test_suffix_min_is_exclusive_per_part():
         np.testing.assert_array_equal(suf[b * Sp:(b + 1) * Sp], want)
 
 
+def _candidate_like_the_kernel(h: np.ndarray, d: int) -> np.ndarray:
+    """csrc/stage1.cu's candidate test in numpy uint64: n = (h * inv +
+    inv) mod 2**32 and r = rotr(n, shift); the filter r <= lim passes
+    the candidates and r = 0 alone (asserted), and a candidate is r <=
+    lim with r != 0 unless inv = 1 (d a power of two)."""
+    inv, lim, shift = stage1.scan_constants(d)
+    m = np.uint64(0xFFFFFFFF)
+    n = (h * np.uint64(inv) + np.uint64(inv)) & m
+    r = ((n >> np.uint64(shift)) |
+         (n << np.uint64((32 - shift) % 32))) & m
+    passed = r <= np.uint64(lim)
+    exact = passed & ((r != 0) | (inv == 1))
+    np.testing.assert_array_equal(passed, exact | (r == 0))
+    return exact
+
+
+def test_scan_constants_reproduce_the_modulo():
+    """The scan kernel's division-free candidate test equals h % d == d - 1
+    for the discriminator of every target from 1 KiB to 512 KiB (and a few
+    others: 1, powers of two, odd, the largest u32) at h = 0, d - 2, d - 1,
+    d, multiples of d and their neighbours, the top of the range and 1e5
+    random values."""
+    ds = {ChunkerConfig.from_target(t).discriminator
+          for t in range(1024, (512 << 10) + 1, 1024)}
+    assert len(ds) > 400
+    ds |= {1, 2, 3, 4096, 1 << 31, 12318 * 1024, 0xFFFFFFFF,
+           ChunkerConfig(48, 64, 256).discriminator}
+    rng = np.random.default_rng(0)
+    rand = rng.integers(0, 2**32, 100_000, dtype=np.uint64)
+    top = 0xFFFFFFFF
+    for d in sorted(ds):
+        near = [k * d + o for k in (1, 2, 3, top // d - 1, top // d)
+                for o in (-1, 0, 1)]
+        h = np.concatenate([np.array(
+            [x for x in [0, d - 2, d - 1, d, top - 1, top] + near
+             if 0 <= x <= top], np.uint64), rand])
+        want = h % np.uint64(d) == np.uint64(d - 1)
+        np.testing.assert_array_equal(_candidate_like_the_kernel(h, d), want,
+                                      err_msg=f"d = {d}")
+    with pytest.raises(ValueError):
+        stage1.scan_constants(0)
+
+
 def test_plan_rejects_unaligned_parts():
     with pytest.raises(ValueError):
         stage1.Stage1Plan(ChunkerConfig.from_target(1024), 1, 1000)
