@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (longtail_tpu_torch) on one card.
 
     python3 chip_smoke.py [--gib 1.0] [--blake2-gib 0.03125] [--seed 7]
+                          [--kernels-only]
 
-Phases, each printing a line; any failure raises and exits non-zero:
+Phases, each printing a line; any failure raises and exits non-zero
+(--kernels-only stops after phase 3, a quick first check of a changed
+kernel: it prints the kernels line without launch counts and no last
+line):
 
 1. device: requires CUDA; prints nvidia-smi's name and power limit;
 2. build: compiles the kernels (csrc/*.cu, one nvcc per source, sm_90a);
@@ -21,13 +25,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
    also at the smallest Z (128, another discriminator; on ragged parts
    and timed on the batch), at an odd discriminator (its candidate
    filter without a rotate) and on a batch that ends inside a block;
-   BLAKE3 on all of that batch's chunks in one
-   launch and on an adversarial batch (odd starts, sizes 0 to 1024
-   leaves, a chunk ending on the batch's last byte), and its row
-   interface on each size class; pack and BLAKE2 on every size class of
-   that batch's chunks plus a size-0 padding tail; the Huffman pack
-   on the four streams of a 128 KiB zstd block of the structured data,
-   a short single-stream section and a skewed distribution;
+   BLAKE3 and BLAKE2 each on all of that batch's chunks in one launch
+   and on an adversarial batch (odd starts, sizes 0 to 1024 leaves or
+   64 KiB, a chunk ending on the batch's last byte), BLAKE2 also logging
+   a model of its longest chunk's chain; pack on every size class of
+   that batch's chunks plus a size-0 padding tail, and both hashes' row
+   interfaces on its rows; the Huffman pack once per zstd frame on every
+   Huffman section of an 8 MiB block of the structured data, and on the
+   four streams of its 128 KiB zstd block with the most literals, a
+   short single-stream section (both also through the (S, n_pad)
+   interface) and a frame with 1-bit and 11-bit codes;
 4. main path: the CLI's ``upsync`` of a synthetic asset tree (--gib GiB,
    default 1) on the card, which it uses by default, at the defaults
    (32 KiB target chunk, 64 MiB batches, 8 MiB blocks), with zstd (the
@@ -35,8 +42,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    smaller tree (--blake2-gib, default 32 MiB) with BLAKE2 (zstd blocks,
    --device cuda); each kernel's launch count is set to 0 before and
    read after each run and must be positive for every kernel of that
-   path; prints wall time, GB/s, compression ratio and the blocks of
-   each route;
+   path, the path's hash must launch once per batch, pack never, and
+   the Huffman pack at most once per zstd frame; prints wall time,
+   GB/s, compression ratio and the blocks of each route;
 5. held to the host: each .lvi equals the port's host path's
    (device=None) byte for byte, a downsync of each store through the
    port's api.downsync reproduces the tree, sampled 8 MiB blocks
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import filecmp
+import hashlib
 import json
 import os
 import shutil
@@ -71,7 +80,8 @@ import numpy as np
 # sheet), and its int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 # (NVIDIA's Hopper architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * CLOCK_HZ
 # integer operations per 64-byte compression: 8 G functions per round of
 # 12 operations each (Hopper's IADD3 adds three operands in one
 # instruction, so a + b + m is one: 2 three-input adds, 2 adds, 4 xors,
@@ -79,6 +89,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # h[i] ^ v[i] ^ v[i + 8], one 3-input LOP3 each)
 BLAKE3_OPS = 7 * 8 * 12 + 8
 BLAKE2_OPS = 10 * 8 * 12 + 8
+# BLAKE2s-64 of the empty message as (lo, hi) int32 words: the digest of
+# a size-0 padding row
+EMPTY_BLAKE2 = tuple(int.from_bytes(hashlib.blake2s(b"", digest_size=8)
+                                    .digest()[4 * k:4 * k + 4], "little",
+                                    signed=True) for k in (0, 1))
 # ALU operations per scanned byte: the rolling update h' = rotl(h, 1) ^
 # T16[out] ^ T[in] (a rotate and a 3-input xor, LOP3; the outgoing byte's
 # rotate is folded into the table T16 = rotl(T, 48)) and the candidate
@@ -232,13 +247,23 @@ def max_abs_err(got, want) -> int:
 
 
 def hufpack_cases(rng, dev):
-    """The pack's inputs at the main path's shapes: the four streams of
-    the 128 KiB zstd block with the most literals in an 8 MiB block of
-    the structured data (n_pad 32768), one short single-stream section,
-    and a skewed distribution (1-bit and 11-bit codes)."""
+    """The frame pack's inputs (entropy_kernel.frame_inputs) at the main
+    path's shapes: every Huffman section of the zstd frame of an 8 MiB
+    block of the structured data, as the device tier plans it (its
+    sequences from the anchors, device_entropy.huffman_jobs); the old
+    single-section cases, the four streams of its 128 KiB zstd block with
+    the most literals (32768 a stream) and a short single-stream section;
+    and a frame of a skewed distribution (1-bit and 11-bit codes) beside
+    a one-literal stream.  Returns [(name, longest code, (S, n_pad) rows
+    or None, [lits, streams, tables] on dev, n_words)]."""
     import torch
 
-    from longtail_tpu_torch.ops import device_entropy, zstd_device, zstd_frame
+    from longtail_tpu_torch.ops import (
+        device_entropy,
+        entropy_kernel,
+        zstd_device,
+        zstd_frame,
+    )
     from longtail_tpu_torch.parallel.device_match import fast_block_anchors
 
     src = structured(rng, 8 << 20).tobytes()
@@ -249,24 +274,44 @@ def hufpack_cases(rng, dev):
     seqs = zstd_device.sequences_from_anchors(src, apos, aref)
     sections = [lits for _, _, lits in
                 device_entropy.literal_sections(src, seqs)]
+    _, _, frame = device_entropy.huffman_jobs(sections, dev)
     big = np.frombuffer(max(sections, key=len), np.uint8)
-    skew = rng.choice(np.arange(256), size=16384,
-                      p=np.r_[[0.75], np.full(255, 0.25 / 255)]
-                      ).astype(np.uint8)
-    cases = []
-    for name, arr in (("128 KiB block", big), ("short section", big[:700]),
-                      ("skewed", skew)):
+    # byte 0 12000 times, 20 bytes 100 times, the rest once: 1-bit and
+    # 11-bit codes
+    skew = rng.permutation(np.repeat(np.arange(256), np.r_[
+        [12000], np.full(20, 100), np.ones(235, np.int64)])).astype(np.uint8)
+
+    def job(arr):
         _, cv, cl = zstd_frame.build_huffman(
             np.bincount(arr, minlength=256).tolist())
-        n = len(arr)
-        if n > 1023:
-            seg = (n + 3) // 4
+        if len(arr) > 1023:
+            seg = (len(arr) + 3) // 4
             parts = [arr[i * seg:(i + 1) * seg] for i in range(4)]
         else:
             parts = [arr]
-        ins = device_entropy.stream_inputs(parts, cv, cl)
-        cases.append((name, max(cl),
-                      [torch.from_numpy(a).to(dev) for a in ins]))
+        return parts, entropy_kernel.pack_code_table(cv, cl)
+
+    cases = []
+    for name, jobs, rows in (
+            (f"8 MiB frame ({len(sections)} sections)", frame, False),
+            ("128 KiB block", [job(big)], True),
+            ("short section", [job(big[:700])], True),
+            ("skewed frame", [job(skew), ([big[:1]], job(big)[1])], False)):
+        *ins, n_words = entropy_kernel.frame_inputs(jobs)
+        longest = max(int(t >> 16) for _, tab in jobs for t in tab)
+        row_ins = None
+        if rows:            # the (S, n_pad) interface on the same streams
+            parts, tab = jobs[0]
+            n_pad = 1 << max(8, (max(len(p) for p in parts) - 1).bit_length())
+            lits = np.zeros((len(parts), n_pad), np.uint8)
+            for i, p in enumerate(parts):
+                lits[i, :len(p)] = p
+            row_ins = [torch.from_numpy(x).to(dev) for x in (
+                lits, np.array([len(p) for p in parts], np.int32), tab)]
+        cases.append((name, longest, row_ins,
+                      [torch.from_numpy(x).to(dev) for x in ins], n_words))
+    if not frame or max(c[1] for c in cases) != zstd_frame.MAX_HUF_BITS:
+        raise AssertionError("hufpack cases miss a branch")
     return cases
 
 
@@ -466,6 +511,40 @@ def blake3_cases(rng, dev) -> int:
     return err
 
 
+def blake2_cases(rng, dev) -> int:
+    """The BLAKE2 batch kernel against hash_chunks_batch on chunks it must
+    get right in one call: odd starts, sizes 0, 1, 63, 64, 65, 4 KiB - 1
+    and 64 KiB, size 0 at the batch's end, a chunk ending on its last
+    byte, in plan_order; each checked to be there.  Returns
+    max_abs_err."""
+    import torch
+
+    from longtail_tpu_torch.ops import blake2, blake2_kernel
+
+    n = 1 << 20
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    sizes = np.array([0, 1, 63, 64, 65, 4095, 65536, 0, 777, 128, 4097],
+                     np.int64)
+    starts = np.array([5, 17, 1001, 3, 4093, 40961, 70001, n, n - 777, 64,
+                       1], np.int64)
+    extra = rng.integers(0, 66000, 60)
+    sizes = np.concatenate([sizes, extra])
+    starts = np.concatenate([starts, [rng.integers(0, n - s + 1)
+                                      for s in extra]])
+    reach = ((sizes == 0).any() and (starts % 4 != 0).any()
+             and (starts + sizes == n).any() and (starts == n).any()
+             and {1, 63, 64, 65, 4095, 65536} <= set(sizes.tolist()))
+    if not reach:
+        raise AssertionError("BLAKE2 cases miss a branch")
+    args = [torch.from_numpy(x).to(dev) for x in (
+        data, starts.astype(np.int32), sizes.astype(np.int32),
+        blake2.plan_order(sizes))]
+    err = max_abs_err(blake2_kernel.hash_chunks_device(*args),
+                      blake2.hash_chunks_batch(*args[:3]))
+    log(f"blake2 adversarial: {len(sizes)} chunks, max_abs_err {err}")
+    return err
+
+
 def check_kernels(seed: int) -> list:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -478,7 +557,7 @@ def check_kernels(seed: int) -> list:
         entropy_kernel,
         pack,
     )
-    from longtail_tpu_torch.parallel import pipeline, stage1
+    from longtail_tpu_torch.parallel import stage1
     from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 
     dev = torch.device("cuda")
@@ -589,15 +668,52 @@ def check_kernels(seed: int) -> list:
         bound(int(sz_all.sum()) + nbytes(st_t, sz_t, plan_t) + 8 * len(sz_all),
               BLAKE3_OPS * int((b3_blocks + b3_leaves - 1).sum())))
 
-    # pack and BLAKE2 (the BLAKE2 path) per size class; the BLAKE3 row
-    # interface on each class's packed rows
-    cap, floor = pipeline.pow2_cap(cfg.padded_chunk), pipeline.class_floor(cfg)
-    padded = pipeline._pow2_padded(sz_all, cap, floor)
-    err = {"pack": 0, "blake2": 0}
-    t = {k + s: 0.0 for k in ("pack", "blake2")
-         for s in ("", "_plain", "_device")}
-    # least bytes and integer operations of each function over the classes
-    work = {k: [0, 0] for k in ("pack", "blake2")}
+    # BLAKE2: every chunk of the batch in one launch, in plan_order, read
+    # from the batch; its bytes are the chunk bytes once, starts, sizes,
+    # order and output
+    b2_order = torch.from_numpy(blake2.plan_order(sz_all)).to(dev)
+    b2 = (batch, st_t, sz_t, b2_order)
+    b2_out = []         # the plain version takes ~a minute: timed once
+    b2_plain_ms = cuda_ms(lambda: b2_out.append(blake2.hash_chunks_batch(
+        *b2[:3])), 1, warmup=False)
+    b2_plain = b2_out[0]
+    b2err = max(max_abs_err(blake2_kernel.hash_chunks_device(*b2), b2_plain),
+                blake2_cases(rng, dev))
+    b2_blocks = blake2.blocks_of(sz_all)
+    b2_ms = cuda_ms(lambda: blake2_kernel.hash_chunks_device(*b2), 10)
+    b2_dev = device_ms(lambda: blake2_kernel.hash_chunks_device(*b2), 10,
+                       "blake2_kernel")
+    # the threads in plan_order and in chunk order, the two in turn for 3
+    # rounds, by CUDA events (the kernel is long beside its submission)
+    orders = {"plan_order": b2_order, "chunk order": torch.arange(
+        len(sz_all), dtype=torch.int32, device=dev)}
+    b2_times = {k: [] for k in orders}
+    for _ in range(3):
+        for k, order in orders.items():
+            b2_times[k].append(cuda_ms(
+                lambda: blake2_kernel.hash_chunks_device(*b2[:3], order), 10))
+    log(f"blake2: {len(sz_all)} chunks in one launch: {b2_dev:.4f} ms of "
+        f"device time against the size-class design's 2.3375 ms (4 pack + "
+        f"4 BLAKE2 launches per batch, on an H100 at 700 W); ms by events "
+        f"of 3 rounds in turn: " + "; ".join(
+            f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+            for k, v in b2_times.items()))
+    # a model, not a measurement: one thread per chunk, one warp issuing
+    # one integer instruction every other cycle (16 INT32 lanes a
+    # sub-partition)
+    log(f"blake2 chain model: the longest chunk's "
+        f"{int(b2_blocks.max())} compressions x {BLAKE2_OPS} instructions "
+        f"x 2 cycles at {CLOCK_HZ / 1e9} GHz = "
+        f"{int(b2_blocks.max()) * BLAKE2_OPS * 2 / CLOCK_HZ * 1e3:.4f} ms")
+
+    # pack per size class of the batch's chunks plus size-0 padding rows
+    # (no upsync path runs it); both hashes' row interfaces on its rows,
+    # BLAKE2's held to the batch's plain digests of the same chunks
+    cap, floor = pack.pow2_cap(cfg.padded_chunk), pack.class_floor(cfg)
+    padded = pack.pow2_padded(sz_all, cap, floor)
+    perr, rerr = 0, 0
+    t = {"pack": 0.0, "pack_plain": 0.0, "pack_device": 0.0}
+    pack_bytes = 0
     for cls in np.unique(padded):
         idx = np.flatnonzero(padded == cls)
         tail = np.zeros(5, np.int64)                 # size-0 padding rows
@@ -607,59 +723,56 @@ def check_kernels(seed: int) -> list:
                               .astype(np.int32)).to(dev)
         cls = int(cls)
         words = pack.pack(batch, st, sz, cls)
-        err["pack"] = max(err["pack"], max_abs_err(
+        perr = max(perr, max_abs_err(
             [words], [pack.pack_plain(batch, st, sz, cls)]))
         t["pack"] += cuda_ms(lambda: pack.pack(batch, st, sz, cls), 10)
         t["pack_plain"] += cuda_ms(
             lambda: pack.pack_plain(batch, st, sz, cls), 2)
         t["pack_device"] += device_ms(
             lambda: pack.pack(batch, st, sz, cls), 10, "pack_kernel")
-        szl = sz.to(torch.int64)
-        chunk_bytes = int(szl.sum())
-        work["pack"][0] += chunk_bytes + nbytes(st, sz, words)
-        blocks = torch.clamp((szl + 63) // 64, min=1)
-        work["blake2"][0] += chunk_bytes + nbytes(sz) + 8 * len(sz)
-        work["blake2"][1] += BLAKE2_OPS * int(blocks.sum())
-        rerr = max_abs_err(blake3_kernel.hash_chunks_words_device(words, sz),
-                           blake3.hash_chunks_words(words, sz))
-        if rerr:
-            raise AssertionError(f"BLAKE3 rows of class {cls}: max_abs_err "
-                                 f"{rerr}")
-        err["blake2"] = max(err["blake2"], max_abs_err(
-            blake2_kernel.hash_chunks_words_device(words, sz),
-            blake2.hash_chunks_words(words, sz)))
-        t["blake2"] += cuda_ms(
-            lambda: blake2_kernel.hash_chunks_words_device(words, sz), 10)
-        t["blake2_plain"] += cuda_ms(
-            lambda: blake2.hash_chunks_words(words, sz), 1, warmup=False)
-        t["blake2_device"] += device_ms(
-            lambda: blake2_kernel.hash_chunks_words_device(words, sz), 10,
-            "blake2_kernel")
+        pack_bytes += int(sz.to(torch.int64).sum()) + nbytes(st, sz, words)
+        rerr = max(rerr, max_abs_err(
+            blake3_kernel.hash_chunks_words_device(words, sz),
+            blake3.hash_chunks_words(words, sz)))
+        at = torch.from_numpy(idx).to(dev)
+        lo, hi = blake2_kernel.hash_chunks_words_device(words, sz)
+        rerr = max(rerr, max_abs_err(
+            [lo[:len(idx)], hi[:len(idx)], lo[len(idx):], hi[len(idx):]],
+            [b2_plain[0][at], b2_plain[1][at]] + [torch.full_like(
+                lo[len(idx):], EMPTY_BLAKE2[k]) for k in (0, 1)]))
         log(f"class {cls >> 10} KiB: {len(idx)} chunks + 5 padding rows; "
-            f"BLAKE3 rows equal")
-    for name, src, rep in (
-            ("pack", pack.SOURCE, pack.REPLACES),
-            ("blake2", blake2_kernel.SOURCE, blake2_kernel.REPLACES)):
-        row(name, src, rep, err[name], t[name], t[name + "_plain"],
-            t[name + "_device"], bound(*work[name]))
+            f"pack, BLAKE3 rows and BLAKE2 rows max_abs_err {perr}, {rerr}")
+    if rerr:
+        raise AssertionError(f"a row interface disagrees: max_abs_err {rerr}")
+    row("pack", pack.SOURCE, pack.REPLACES, perr, t["pack"],
+        t["pack_plain"], t["pack_device"], bound(pack_bytes, 0))
+    row("blake2", blake2_kernel.SOURCE, blake2_kernel.REPLACES, b2err,
+        b2_ms, b2_plain_ms, b2_dev,
+        bound(int(sz_all.sum()) + nbytes(st_t, sz_t, b2_order)
+              + 8 * len(sz_all), BLAKE2_OPS * int(b2_blocks.sum())))
 
-    herr, hms, hplain, hdev, hbytes = 0, 0.0, 0.0, 0.0, 0
-    for name, max_len, ins in hufpack_cases(rng, dev):
-        out = entropy_kernel.hufpack(*ins)
-        e = max_abs_err(out, entropy_kernel.hufpack_plain(*ins))
-        hbytes += nbytes(*ins, *out)
-        ms = cuda_ms(lambda: entropy_kernel.hufpack(*ins), 20)
-        pms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*ins), 5)
-        dms = device_ms(lambda: entropy_kernel.hufpack(*ins), 20,
-                        "hufpack_kernel")
-        log(f"hufpack {name}: S={ins[0].shape[0]}, n_pad="
-            f"{ins[0].shape[1]}, longest code {max_len} bits, "
-            f"max_abs_err {e}, {ms:.4f} ms by events, {dms:.4f} ms of "
-            f"device time (plain {pms:.4f} ms)")
-        herr, hms, hplain, hdev = (max(herr, e), hms + ms, hplain + pms,
-                                   hdev + dms)
+    # the Huffman pack, one launch per frame; the frame row is the main
+    # path's shape, the other cases are checked and logged
+    herr = 0
+    for name, longest, row_ins, ins, n_words in hufpack_cases(rng, dev):
+        out = entropy_kernel.hufpack_frame(*ins, n_words)
+        e = max_abs_err(out, entropy_kernel.hufpack_frame_plain(
+            *ins, n_words))
+        if row_ins is not None:
+            e = max(e, max_abs_err(entropy_kernel.hufpack(*row_ins),
+                                   entropy_kernel.hufpack_plain(*row_ins)))
+        herr = max(herr, e)
+        ms = cuda_ms(lambda: entropy_kernel.hufpack_frame(*ins, n_words), 20)
+        dms = device_ms(lambda: entropy_kernel.hufpack_frame(*ins, n_words),
+                        20, "hufpack_kernel")
+        log(f"hufpack {name}: {ins[1].shape[0]} streams, {ins[0].numel()} "
+            f"literal bytes, longest code {longest} bits, max_abs_err {e}, "
+            f"{ms:.4f} ms by events, {dms:.4f} ms of device time")
+        if name.startswith("8 MiB frame"):
+            frame = (ms, cuda_ms(lambda: entropy_kernel.hufpack_frame_plain(
+                *ins, n_words), 3), dms, nbytes(*ins, *out))
     row("hufpack", entropy_kernel.SOURCE, entropy_kernel.REPLACES, herr,
-        hms, hplain, hdev, bound(hbytes, 0))
+        frame[0], frame[1], frame[2], bound(frame[3], 0))
     return rows
 
 
@@ -826,6 +939,8 @@ def main() -> int:
     ap.add_argument("--blake2-gib", type=float, default=1 / 32,
                     help="size of the tree of the BLAKE2 upsync in GiB")
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels phase")
     args = ap.parse_args()
 
     import torch
@@ -850,7 +965,7 @@ def main() -> int:
         pack,
         zstd,
     )
-    from longtail_tpu_torch.parallel import stage1
+    from longtail_tpu_torch.parallel import pipeline, stage1
     from longtail_tpu_torch.stores.compressblockstore import (
         CompressBlockStore,
     )
@@ -872,21 +987,32 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rows = check_kernels(args.seed)
+    if args.kernels_only:
+        print(json.dumps({"kernels": rows}))
+        return 0
 
     # 4. main path: the CLI's upsync on the card, zstd (default), LZ4,
     # BLAKE2; the card is the default, and --device takes it bare or named
     wrappers = {"scan": stage1.scan, "walk": stage1.walk,
                 "pack": pack.pack,
                 "blake3": blake3_kernel.hash_chunks_device,
-                "blake2": blake2_kernel.hash_chunks_words_device,
-                "hufpack": entropy_kernel.hufpack}
+                "blake2": blake2_kernel.hash_chunks_device,
+                "hufpack": entropy_kernel.hufpack_frame}
     paths = {  # name: (extra flags, kernels the path must launch, tree)
         "zstd": ([], ("scan", "walk", "blake3", "hufpack"), "src"),
         "lz4": (["--device", "--compression-algorithm", "lz4"],
                 ("scan", "walk", "blake3"), "src"),
         "blake2": (["--device", "cuda", "--hash-algorithm", "blake2"],
-                   ("scan", "walk", "pack", "blake2", "hufpack"), "src_b2"),
+                   ("scan", "walk", "blake2", "hufpack"), "src_b2"),
     }
+    # batches of the pipeline, to hold a hash to one launch per batch
+    plan_hash = pipeline.DevicePartIndexer.plan_hash
+
+    def counted_plan_hash(self, *a, **k):
+        counted_plan_hash.BATCHES += 1
+        return plan_hash(self, *a, **k)
+
+    pipeline.DevicePartIndexer.plan_hash = counted_plan_hash
     tmp = tempfile.mkdtemp(prefix="lt_chip_smoke_")
     try:
         trees = {}
@@ -903,6 +1029,7 @@ def main() -> int:
             for w in wrappers.values():
                 w.LAUNCHES = 0
             stage1.repair_lane.REPAIRS = 0
+            counted_plan_hash.BATCHES = 0
             t0 = time.perf_counter()
             rc = cli.main(["upsync", "--storage-uri",
                            os.path.join(tmp, f"store_{name}"),
@@ -911,13 +1038,14 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+            batches = counted_plan_hash.BATCHES
             summary = store_summary(os.path.join(tmp, f"store_{name}"),
                                     "lz4" if name == "lz4" else "zstd")
             log(f"upsync {' '.join(extra) or '(zstd, blake3, the card)'}: "
                 f"rc {rc}, {wall:.3f} s, {total / wall / 1e9:.3f} GB/s, "
                 f"ratio {summary['raw'] / summary['stored']:.4f}; "
-                f"launches {counts}; ambiguous lanes repaired "
-                f"{stage1.repair_lane.REPAIRS}; blocks {summary}")
+                f"launches {counts}; {batches} batches; ambiguous lanes "
+                f"repaired {stage1.repair_lane.REPAIRS}; blocks {summary}")
             if rc != 0:
                 raise AssertionError(f"upsync {name} exited {rc}")
             for k in need:
@@ -925,11 +1053,23 @@ def main() -> int:
                     raise AssertionError(f"the {name} path never launched "
                                          f"{k}")
                 launches.setdefault(k, counts[k])
-            if "blake3" in need and counts["pack"]:
+            hash_kind = "blake2" if "blake2" in need else "blake3"
+            if counts[hash_kind] != batches:
+                raise AssertionError(f"the {name} path launched {hash_kind} "
+                                     f"{counts[hash_kind]} times in "
+                                     f"{batches} batches")
+            if counts["pack"]:
                 raise AssertionError(f"the {name} path launched pack: "
-                                     "BLAKE3 reads the batch")
-        for r in rows:
-            r["launches"] = launches[r["name"]]
+                                     "the hashes read the batch")
+            # a zstd frame per device-route block, one pack launch a frame
+            if "hufpack" in need and \
+                    counts["hufpack"] > summary["device_route"]:
+                raise AssertionError(
+                    f"the {name} path launched hufpack {counts['hufpack']} "
+                    f"times for {summary['device_route']} frames")
+        pipeline.DevicePartIndexer.plan_hash = plan_hash
+        for r in rows:                      # pack: 0, checked on each path
+            r["launches"] = launches.get(r["name"], 0)
 
         # 5. held to the host
         for name, hash_id, tag in (

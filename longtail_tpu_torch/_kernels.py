@@ -11,7 +11,7 @@ package), with a C interface bound through ctypes.  It rebuilds when a
 source, or this file, is newer than the library.  The algorithm constants
 (BLAKE3 IV, message permutation and flags, BLAKE2s IV, SIGMA and
 parameter word, the HPCDC window, the anchor gram hash, the walk's
-shared-memory state cap) reach the CUDA sources as ``-D`` macros taken
+shared-memory state cap, the Huffman code and stream limits) reach the CUDA sources as ``-D`` macros taken
 from the Python modules, so the sources hold no copy of them.
 
 Every entry point launches on the stream it is given, allocates nothing
@@ -61,10 +61,11 @@ _SIGNATURES = {
     "lt_pack": [_P, _LL, _P, _P, _P, _I, _I, _P],
     # bytes, n_bytes, starts, sizes, plan, out, n_chunks, n_blocks, stream
     "lt_blake3": [_P, _LL, _P, _P, _P, _P, _I, _I, _P],
-    # words, lengths, out, rows, row_words, stream
-    "lt_blake2": [_P, _P, _P, _I, _I, _P],
-    # lits, n_lit, table, out, totals, n_streams, n_pad, W, stream
-    "lt_hufpack": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # bytes, n_bytes, starts, sizes, order, out, n_chunks, stream
+    "lt_blake2": [_P, _LL, _P, _P, _P, _P, _I, _P],
+    # lits, n_lits, streams, tables, words, totals, n_streams, n_tables,
+    # n_words, stream
+    "lt_hufpack": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -77,6 +78,7 @@ def defines() -> list[str]:
     from longtail_tpu_torch.formats.constants import CHUNKER_WINDOW_SIZE
     from longtail_tpu_torch.ops import blake2 as b2
     from longtail_tpu_torch.ops import blake3 as b3
+    from longtail_tpu_torch.ops import entropy_kernel as ek
     from longtail_tpu_torch.parallel import device_match as dm
     from longtail_tpu_torch.parallel import stage1
 
@@ -106,6 +108,8 @@ def defines() -> list[str]:
         f"-DLT_GRAM_H1={dm.GRAM_H1:#x}u",
         f"-DLT_BIN_WORDS={dm.BIN_WORDS}",
         f"-DLT_WALK_CAP={stage1.WALK_CAP}",
+        f"-DLT_HUF_MAX_BITS={ek.MAX_HUF_BITS}",
+        f"-DLT_HUF_MAX_LITS={ek.MAX_STREAM_LITS}",
     ]
 
 
@@ -130,13 +134,14 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     from longtail_tpu_torch.formats import constants
-    from longtail_tpu_torch.ops import blake2, blake3
+    from longtail_tpu_torch.ops import blake2, blake3, entropy_kernel, zstd_frame
     from longtail_tpu_torch.parallel import device_match, stage1
 
     # the sources, and the Python modules their -D constants come from
     deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh")) + [
         __file__, device_match.__file__, constants.__file__,
-        blake2.__file__, blake3.__file__, stage1.__file__]
+        blake2.__file__, blake3.__file__, stage1.__file__,
+        entropy_kernel.__file__, zstd_frame.__file__]
     return os.path.getmtime(LIB_PATH) < max(os.path.getmtime(p) for p in deps)
 
 

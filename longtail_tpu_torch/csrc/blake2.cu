@@ -1,30 +1,47 @@
-// BLAKE2s with an 8-byte digest of a batch of chunk rows: each chunk
-// chains its 64-byte blocks sequentially; the 64-bit digest is the first
-// two output words.
+// BLAKE2s with an 8-byte digest of chunks where they lie in a flat byte
+// batch: each chunk chains its 64-byte blocks; the 64-bit digest is the
+// first two output words.
 //
-// Replaces longtail_tpu/ops/blake2_kernel.py _make_hash_fn.  The TPU
-// kernel takes the words transposed, (padded/4, rows), so that chunks
-// ride the vector lanes and a block's 16 message words are row slices
-// (a Mosaic lane trick).  Here one thread hashes one chunk and reads its
-// own row of the row-major (rows, padded/4) input, as the port's BLAKE3
-// kernel takes it.
-//   Bound on the H100: the chain of dependent compressions of the longest
-// chunks (1024 for 64 KiB, 10 rounds of 8 G functions each), since a
-// size class of a batch has only hundreds to a few thousand rows, so
-// few threads run; and, second, memory access: a thread reading its own
-// row makes the warp's loads uncoalesced (32 rows apart), which the
-// 16-byte loads only soften.  Launching all classes at once, and staging
-// a tile of rows through shared memory in transposed order, are left for
-// later.  The message schedule (SIGMA) is
-// resolved at compile time, so the 16 message words stay in registers.
-// Only the chunk's own blocks run: t = min(64 (k + 1), length), the last
-// block sets the final flag, and a zero-length row hashes one zero block.
-//
-// Input words must be zero past each row's length (the pack kernel
-// guarantees it); the row length in words must be a multiple of 16.
+// Replaces longtail_tpu/ops/blake2_kernel.py _make_hash_fn and, on this
+// path, the pack kernel in front of it.  The TPU kernel takes packed rows
+// transposed, (padded/4, rows), one launch per power-of-two size class,
+// so that chunks ride the vector lanes and a block's 16 message words are
+// row slices (a Mosaic lane trick); pack first copies every chunk into
+// its class's aligned, zero-padded rows.  Here every chunk of a batch is
+// hashed in one launch, read once where it lies.
+//   What holds it back, by a model of this one-thread-per-chunk design
+// (an estimate, not a measured bound): the chain.  A chunk's
+// compressions depend on one another, and a compression is 968 integer
+// instructions (10 rounds of 8 G functions of 12, and 8 output xors)
+// whose only parallelism is the four G functions of a half-round.  If a
+// sub-partition of an SM runs a warp's 32-bit integer instruction on its
+// 16 INT32 lanes, one warp alone issues at most one every other cycle,
+// and a 64 KiB chunk's 1024 compressions take ~1024 x 968 x 2 / 1.98 GHz
+// ~ 1.0 ms.  The operations bound of a 64 MiB batch (~0.06 ms) assumes
+// every lane busy; its ~4,850 chunks make only ~150 warps for the card's
+// 528 sub-partitions, and the longest chains set the time.  Splitting a
+// compression across lanes does not shorten the chain; it adds shuffle
+// latency to it.
+// Design:
+//  - One thread per chunk.  Threads take chunks in the host's order
+//    (ops/blake2.py plan_order: descending block count), so a warp's 32
+//    chains have nearly equal lengths and the longest start in the first
+//    wave; blocks are one warp, so the longest warps spread over the SMs'
+//    schedulers instead of sharing them.
+//  - A block's 16 message words come from the batch at any byte offset
+//    (chunk_bytes.cuh: aligned 16-byte loads and a funnel shift per word,
+//    bytes past the chunk zeroed in registers), the next block's loads in
+//    flight while the current one compresses.
+//  - SIGMA is resolved at compile time, so m[] stays in registers.
+//  - The digest is written at the chunk's own index: chunk order.
+// Only the chunk's own blocks run: t = min(64 (k + 1), size), the last
+// block sets the final flag, and a chunk of size 0 hashes one zero block.
+// The kernel traps on an order entry or a chunk outside the batch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "chunk_bytes.cuh"
 
 #ifndef LT_BLAKE2_IV0
 #error "build through longtail_tpu_torch/_kernels.py, which defines the algorithm constants"
@@ -32,10 +49,14 @@
 
 namespace {
 
+using chunk_bytes::fetch_block;
+using chunk_bytes::load_block;
+
 constexpr int kBlockBytes = LT_BLAKE2_BLOCK_BYTES;
-constexpr int kBlockWords = kBlockBytes / 4;
 constexpr uint32_t kParam0 = LT_BLAKE2_PARAM0;
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;                // one warp a block
+static_assert(kBlockBytes == chunk_bytes::kBlockBytes,
+              "BLAKE2s blocks are 16 words");
 
 __host__ __device__ constexpr uint32_t iv(int i) {
   constexpr uint32_t v[8] = {LT_BLAKE2_IV0, LT_BLAKE2_IV1, LT_BLAKE2_IV2,
@@ -64,13 +85,14 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
+// a + x is off the chain through b
 __device__ __forceinline__ void g(uint32_t& a, uint32_t& b, uint32_t& c,
                                   uint32_t& d, uint32_t x, uint32_t y) {
-  a = a + b + x;
+  a = a + x + b;
   d = rotr(d ^ a, 16);
   c = c + d;
   b = rotr(b ^ c, 12);
-  a = a + b + y;
+  a = a + y + b;
   d = rotr(d ^ a, 8);
   c = c + d;
   b = rotr(b ^ c, 7);
@@ -109,46 +131,55 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
 }
 
 __global__ void __launch_bounds__(kThreads)
-blake2_kernel(const uint32_t* __restrict__ words,
-              const int32_t* __restrict__ lengths, uint32_t* __restrict__ out,
-              int rows, int row_words) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= rows) return;
-  const int len = lengths[row];
-  const int n_blocks = max((len + kBlockBytes - 1) / kBlockBytes, 1);
+blake2_kernel(const uint8_t* __restrict__ bytes,
+              const int32_t* __restrict__ starts,
+              const int32_t* __restrict__ sizes,
+              const int32_t* __restrict__ order, uint32_t* __restrict__ out,
+              int n_chunks, long long n_bytes) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_chunks) return;
+  const int c = order[t];
+  if (c < 0 || c >= n_chunks) __trap();     // not an index of a chunk
+  const int size = sizes[c];
+  const long long a = starts[c];
+  if (a < 0 || size < 0 || a + size > n_bytes) __trap();  // outside the batch
+  const int n_blocks = max((size + kBlockBytes - 1) / kBlockBytes, 1);
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = iv(i);
   h[0] ^= kParam0;
-  const uint4* src =
-      reinterpret_cast<const uint4*>(words + (long long)row * row_words);
+  // the next block's loads are in flight during this one's compression
+  uint4 q[5];
+  fetch_block(bytes, a, min(size, kBlockBytes), q);
   for (int k = 0; k < n_blocks; ++k) {
+    const int blen = min(size - k * kBlockBytes, kBlockBytes);
     uint32_t m[16];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 w = src[4 * k + q];
-      m[4 * q] = w.x;
-      m[4 * q + 1] = w.y;
-      m[4 * q + 2] = w.z;
-      m[4 * q + 3] = w.w;
+    load_block(q, a + (long long)k * kBlockBytes, blen, m);
+    if (k + 1 < n_blocks) {
+      fetch_block(bytes, a + (long long)(k + 1) * kBlockBytes,
+                  min(size - (k + 1) * kBlockBytes, kBlockBytes), q);
     }
-    const uint32_t t = (uint32_t)min((k + 1) * kBlockBytes, len);
-    compress(h, m, t, k == n_blocks - 1);
+    compress(h, m, (uint32_t)min((k + 1) * kBlockBytes, size),
+             k == n_blocks - 1);
   }
-  out[row] = h[0];
-  out[rows + row] = h[1];
+  out[c] = h[0];
+  out[n_chunks + c] = h[1];
 }
 
 }  // namespace
 
-// words (rows, row_words) u32, lengths (rows,) i32 -> out (2, rows) u32:
-// row 0 = digest word 0 (lo), row 1 = word 1 (hi)
-extern "C" int lt_blake2(const void* words, const void* lengths, void* out,
-                         int rows, int row_words, void* stream) {
-  static_assert(kBlockWords == 16, "BLAKE2s blocks are 16 words");
-  const unsigned blocks = (unsigned)((rows + kThreads - 1) / kThreads);
-  blake2_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const int32_t*)lengths, (uint32_t*)out, rows,
-      row_words);
+// bytes (n_bytes,) u8, starts, sizes (n_chunks,) i32, order a permutation
+// of the chunks (plan_order) -> out (2, n_chunks) u32: row 0 = digest
+// word 0 (lo), row 1 = word 1 (hi), in chunk order
+extern "C" int lt_blake2(const void* bytes, long long n_bytes,
+                         const void* starts, const void* sizes,
+                         const void* order, void* out, int n_chunks,
+                         void* stream) {
+  if (n_chunks > 0) {
+    const unsigned blocks = (unsigned)((n_chunks + kThreads - 1) / kThreads);
+    blake2_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)bytes, (const int32_t*)starts, (const int32_t*)sizes,
+        (const int32_t*)order, (uint32_t*)out, n_chunks, n_bytes);
+  }
   return (int)cudaGetLastError();
 }

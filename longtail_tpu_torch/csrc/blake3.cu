@@ -41,11 +41,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chunk_bytes.cuh"
+
 #if !defined(LT_BLAKE3_IV0) || !defined(LT_BLAKE3_THREADS)
 #error "build through longtail_tpu_torch/_kernels.py, which defines the algorithm constants"
 #endif
 
 namespace {
+
+using chunk_bytes::fetch_block;
+using chunk_bytes::load_block;
 
 constexpr uint32_t kChunkStart = LT_BLAKE3_CHUNK_START;
 constexpr uint32_t kChunkEnd = LT_BLAKE3_CHUNK_END;
@@ -58,7 +63,8 @@ constexpr int kMaxLeaves = LT_BLAKE3_MAX_LEAVES;
 constexpr int kSlots = kThreads + kMaxLeaves;   // leaves a block can hold
 constexpr int kWarps = kThreads / 32;
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
-static_assert(kBlockBytes == 64, "16 message words of 4 bytes");
+static_assert(kBlockBytes == chunk_bytes::kBlockBytes,
+              "16 message words of 4 bytes");
 
 __host__ __device__ constexpr uint32_t iv(int i) {
   constexpr uint32_t v[8] = {LT_BLAKE3_IV0, LT_BLAKE3_IV1, LT_BLAKE3_IV2,
@@ -127,62 +133,6 @@ __device__ __forceinline__ void compress(uint32_t cv[8], const uint32_t m[16],
   round_fn<6>(v, m);
 #pragma unroll
   for (int i = 0; i < 8; ++i) cv[i] = v[i] ^ v[i + 8];
-}
-
-// m[i] = little-endian word at byte 4 i + 4 Q + sh / 8 of w
-template <int Q>
-__device__ __forceinline__ void shift_words(const uint32_t w[20], int sh,
-                                            uint32_t m[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) m[i] = __funnelshift_r(w[Q + i], w[Q + i + 1], sh);
-}
-
-// the five aligned 16-byte loads that cover the blen (0..64) bytes at a,
-// none past the chunk's last byte (so none past the batch)
-__device__ __forceinline__ void fetch_block(const uint8_t* __restrict__ bytes,
-                                            long long a, int blen,
-                                            uint4 q[5]) {
-  const long long a0 = a & ~15LL;
-  const uint4* src = reinterpret_cast<const uint4*>(bytes + a0);
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-#ifdef LT_VARIANT_NO_LOADS
-    q[k] = a0 + 16 * k < a + blen
-               ? make_uint4((uint32_t)a0 + k, (uint32_t)a * 3u, (uint32_t)k,
-                            (uint32_t)blen)
-               : make_uint4(0u, 0u, 0u, 0u);
-#else
-    q[k] = a0 + 16 * k < a + blen ? __ldg(src + k)
-                                  : make_uint4(0u, 0u, 0u, 0u);
-#endif
-  }
-}
-
-// m = the blen bytes at a from fetch_block's loads, zero past them
-__device__ __forceinline__ void load_block(const uint4 q[5], long long a,
-                                           int blen, uint32_t m[16]) {
-  uint32_t w[20];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    w[4 * k] = q[k].x;
-    w[4 * k + 1] = q[k].y;
-    w[4 * k + 2] = q[k].z;
-    w[4 * k + 3] = q[k].w;
-  }
-  const int lead = (int)(a & 15), sh = 8 * (lead & 3);
-  switch (lead >> 2) {
-    case 0: shift_words<0>(w, sh, m); break;
-    case 1: shift_words<1>(w, sh, m); break;
-    case 2: shift_words<2>(w, sh, m); break;
-    default: shift_words<3>(w, sh, m); break;
-  }
-  if (blen < kBlockBytes) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int nb = blen - 4 * i;          // chunk bytes in word i
-      m[i] = nb >= 4 ? m[i] : nb <= 0 ? 0u : m[i] & ((1u << (8 * nb)) - 1u);
-    }
-  }
 }
 
 // exclusive prefix sum of x over the block; *total = the sum.  Ends with

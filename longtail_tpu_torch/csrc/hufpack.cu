@@ -1,48 +1,67 @@
-// Backward Huffman bit pack of the zstd literals (RFC 8878 §4.2.1): in
-// stream s, literal i's code sits at bit offset sum(len[j] for i < j <
-// n_lit[s]), bits stacked LSB-up; the bit total per stream comes out too.
+// Backward Huffman bit pack of the zstd literals (RFC 8878 §4.2.1) of a
+// whole zstd frame in one launch: in stream s, literal i's code sits at
+// bit offset sum(len[j] for i < j < n_lit[s]), bits stacked LSB-up; the bit
+// total per stream comes out too.
 //
 // Replaces longtail_tpu/ops/entropy_kernel.py make_hufpack_rows_fn (the
 // Pallas bit-merge kernel).  That kernel windows rows of 128 literals,
 // builds each window from wrapping prefix sums and merges the windows in
-// a tree of rolls, all because Mosaic has no scatter.  A GPU has atomics:
-// a code is at most 11 bits, so it touches at most two u32 words, and the
-// codes of different literals are bit-disjoint, so atomicOr into a zeroed
-// output is exact in any order and the result is deterministic.
-//   Bound on the H100: launch and latency.  The main path packs S <= 4
-// streams of n_pad <= 32768 literals (one 128 KiB zstd block), a few
-// blocks per call and ~100 KB of traffic, so neither bandwidth nor ALU
-// bounds it.  Design: a grid over (tile of 1024 literals, stream), one
-// literal per thread.  Each block first adds up the code lengths of the
-// literals after its tile (at most 31 tiles of them per stream, read
-// straight from the input: no second pass and no scratch), then a block
-// scan of its own tile's lengths gives every thread its bit offset.  The
-// 256-entry code table (val | len << 16) lives in shared memory.  The
-// first tile's block writes the stream's total.
-//
-// The output words must be zeroed by the caller; W words per stream cover
-// every offset because each code length is at most 11 (the host checks
-// the table).
+// a tree of rolls, all because Mosaic has no scatter, and runs once per
+// literal section.  Here one launch packs every Huffman stream of a frame
+// (up to 64 sections x 4 streams), each with its own section's table.
+//   Bound on the H100: launch and latency.  A frame's streams hold at most
+// 8 MiB of literals and usually far less, so neither bandwidth nor the ALU
+// bounds the kernel; what costs is each call's round trips, which is why
+// the host calls it once per frame.  Design: one block per stream (a
+// stream holds at most kMaxLits literals).
+//  - Each thread takes a contiguous run of 16 or 32 literals, read as
+//    16-byte loads (the host puts every stream at a 16-byte offset), and
+//    looks up their code lengths in the section's table, held in shared
+//    memory.
+//  - One block scan of the runs' bit counts, taken from the stream's end,
+//    gives each run its bit offset; no literal is read twice.
+//  - Each run appends its codes, last literal first, to a 64-bit register
+//    and ORs each finished 32-bit word into the stream's words in shared
+//    memory (at most kMaxLits x 11 bits = 45 KB): codes of different
+//    literals are bit-disjoint, so the ORs are exact in any order.  No
+//    global zero-fill, no global atomics.
+//  - The block stores the stream's words coalesced, every one of its
+//    words_for(n_lit) words, and its bit total.
+// The kernel traps on a stream outside the buffers or longer than
+// kMaxLits, and on a table entry longer than kMaxBits or whose value does
+// not fit its length.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#if !defined(LT_HUF_MAX_BITS) || !defined(LT_HUF_MAX_LITS)
+#error "build through longtail_tpu_torch/_kernels.py, which defines the code limits"
+#endif
+
 namespace {
 
-constexpr int kTile = 1024;                 // literals per block
-constexpr int kWarps = kTile / 32;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBits = LT_HUF_MAX_BITS;
+constexpr int kMaxLits = LT_HUF_MAX_LITS;
+constexpr int kMaxRun = kMaxLits / kThreads;  // literals a thread
+static_assert(kWarps == 32, "one warp scans the warp sums");
+static_assert(kMaxRun == 32 && kMaxLits % kThreads == 0,
+              "a run is one or two 16-byte loads");
 
-// the sum of v over the block, in every thread
-__device__ __forceinline__ int block_sum(int v, int* sums) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();                          // sums may still be in use
-  if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int t = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += sums[w];
-  return t;
+// words of a stream of n literals: every code at most kMaxBits bits, plus
+// a spill word (ops/entropy_kernel.py words_per_stream)
+__device__ __forceinline__ int words_for(int n) {
+  return (n * kMaxBits + 31) / 32 + 1;
+}
+constexpr int kMaxWords = (kMaxLits * kMaxBits + 31) / 32 + 1;
+
+// byte j of the run held in q (j a compile-time constant once unrolled)
+__device__ __forceinline__ uint32_t byte_at(const uint4 q[2], int j) {
+  const uint4 v = q[j >> 4];
+  const int w = (j >> 2) & 3;
+  const uint32_t word = w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+  return (word >> (8 * (j & 3))) & 0xffu;
 }
 
 // inclusive prefix sum of v over the block; sums[kWarps - 1] ends up
@@ -54,10 +73,9 @@ __device__ __forceinline__ int block_inclusive_sum(int v, int* sums) {
     const int y = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += y;
   }
-  __syncthreads();                          // sums may still be in use
   if (lane == 31) sums[warp] = v;
   __syncthreads();
-  if (warp == 0) {                          // kWarps == 32: one warp scans
+  if (warp == 0) {
     int w = sums[lane];
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -70,54 +88,92 @@ __device__ __forceinline__ int block_inclusive_sum(int v, int* sums) {
   return v + (warp > 0 ? sums[warp - 1] : 0);
 }
 
-__global__ void __launch_bounds__(kTile)
-hufpack_kernel(const uint8_t* __restrict__ lits,
-               const int32_t* __restrict__ n_lit,
-               const int32_t* __restrict__ table, uint32_t* __restrict__ out,
-               int32_t* __restrict__ totals, int n_pad, int W) {
+__global__ void __launch_bounds__(kThreads)
+hufpack_kernel(const uint8_t* __restrict__ lits, long long n_lits,
+               const int32_t* __restrict__ streams,
+               const int32_t* __restrict__ tables,
+               uint32_t* __restrict__ words, int32_t* __restrict__ totals,
+               int n_tables, int n_words) {
   __shared__ uint32_t tab[256];
+  __shared__ uint32_t acc[kMaxWords];
   __shared__ int sums[kWarps];
-  const int s = blockIdx.y;
-  const int tile0 = blockIdx.x * kTile;
-  const int n = min(n_lit[s], n_pad);
-  if (tile0 >= n && blockIdx.x > 0) return;  // the whole block: no codes
-  const uint8_t* row = lits + (long long)s * n_pad;
-  for (int i = threadIdx.x; i < 256; i += kTile) tab[i] = (uint32_t)table[i];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  const int off = streams[4 * s], n = streams[4 * s + 1];
+  const int k = streams[4 * s + 2], woff = streams[4 * s + 3];
+  if (n < 0 || n > kMaxLits || off < 0 || (off & 15) ||
+      (long long)off + n > n_lits || k < 0 || k >= n_tables || woff < 0 ||
+      (long long)woff + words_for(n) > n_words) {
+    __trap();                               // a stream outside the buffers
+  }
+  const int W = words_for(n);
+  for (int i = tid; i < 256; i += kThreads) {
+    const uint32_t e = (uint32_t)tables[256 * k + i];
+    const uint32_t len = e >> 16, val = e & 0xffffu;
+    if (len > (uint32_t)kMaxBits || (val >> len) != 0u) __trap();
+    tab[i] = e;
+  }
+  for (int i = tid; i < W; i += kThreads) acc[i] = 0u;
+
+  // this thread's run: literals [a, a + m) of the stream
+  const int run = n <= 16 * kThreads ? 16 : 32;
+  const int a = tid * run;
+  const int m = max(0, min(run, n - a));
+  const uint4* src = reinterpret_cast<const uint4*>(lits + off + a);
+  uint4 q[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  if (m > 0) q[0] = __ldg(src);
+  if (m > 16) q[1] = __ldg(src + 1);
+  __syncthreads();                          // tab and acc ready
+
+  int bits = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxRun; ++j) {
+    if (j < m) bits += (int)(tab[byte_at(q, j)] >> 16);
+  }
+  const int incl = block_inclusive_sum(bits, sums);
+  const int total = sums[kWarps - 1];
+  const int base = total - incl;            // bits of the later runs
+
+  if (m > 0) {
+    int w = base >> 5, fill = base & 31;
+    unsigned long long buf = 0ull;
+#pragma unroll
+    for (int j = kMaxRun - 1; j >= 0; --j) {
+      if (j < m) {
+        const uint32_t e = tab[byte_at(q, j)];
+        buf |= (unsigned long long)(e & 0xffffu) << fill;
+        fill += (int)(e >> 16);
+        if (fill >= 32) {
+          atomicOr(&acc[w], (uint32_t)buf);
+          buf >>= 32;
+          fill -= 32;
+          ++w;
+        }
+      }
+    }
+    if (fill > 0) atomicOr(&acc[w], (uint32_t)buf);
+  }
   __syncthreads();
-
-  int later = 0;                            // bits of the later tiles
-  for (int i = tile0 + kTile + threadIdx.x; i < n; i += kTile) {
-    later += (int)(tab[row[i]] >> 16);
-  }
-  later = block_sum(later, sums);
-
-  const int i = tile0 + threadIdx.x;
-  const uint32_t e = i < n ? tab[row[i]] : 0u;
-  const int len = (int)(e >> 16);
-  const uint32_t val = e & 0xffffu;
-  const int incl = block_inclusive_sum(len, sums);
-  const int tile_bits = sums[kWarps - 1];
-  const int off = later + tile_bits - incl;  // bits of the literals after i
-  if (len > 0) {
-    uint32_t* w = out + (long long)s * W + (off >> 5);
-    const int sh = off & 31;
-    atomicOr(w, val << sh);
-    if (sh + len > 32) atomicOr(w + 1, val >> (32 - sh));
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) totals[s] = later + tile_bits;
+  for (int i = tid; i < W; i += kThreads) words[woff + i] = acc[i];
+  if (tid == 0) totals[s] = total;
 }
 
 }  // namespace
 
-// lits (S, n_pad) u8, n_lit (S,) i32, table (256,) i32 = val | len << 16,
-// out (S, W) u32 zeroed, totals (S,) i32
-extern "C" int lt_hufpack(const void* lits, const void* n_lit,
-                          const void* table, void* out, void* totals,
-                          int n_streams, int n_pad, int W, void* stream) {
-  const dim3 grid((unsigned)((n_pad + kTile - 1) / kTile),
-                  (unsigned)n_streams);
-  hufpack_kernel<<<grid, kTile, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)lits, (const int32_t*)n_lit, (const int32_t*)table,
-      (uint32_t*)out, (int32_t*)totals, n_pad, W);
+// lits (n_lits,) u8, every stream at a 16-byte offset and n_lits a
+// multiple of 16; streams (n_streams, 4) i32 = (literal offset, n_lit,
+// table index, word offset); tables (n_tables, 256) i32 = val | len << 16
+// -> words (n_words,) u32 (stream s's words_for(n_lit) words at its
+// offset), totals (n_streams,) i32
+extern "C" int lt_hufpack(const void* lits, long long n_lits,
+                          const void* streams, const void* tables,
+                          void* words, void* totals, int n_streams,
+                          int n_tables, int n_words, void* stream) {
+  if (n_streams > 0) {
+    hufpack_kernel<<<(unsigned)n_streams, kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        (const uint8_t*)lits, n_lits, (const int32_t*)streams,
+        (const int32_t*)tables, (uint32_t*)words, (int32_t*)totals,
+        n_tables, n_words);
+  }
   return (int)cudaGetLastError();
 }

@@ -9,19 +9,24 @@ torch lane math: every row is a lane, and its
 has no unsigned 32-bit arithmetic, so words ride as int64 masked to 32
 bits.
 
-It is the plain version of the CUDA kernel in ``blake2_kernel.py`` and
-has the port's BLAKE3 contract: words ``(rows, padded/4)`` int32,
-little-endian and zero past each row's length, padded a multiple of 64;
-lengths ``(rows,)``; returns ``(lo, hi)``, each ``(rows,)`` int32 holding
-the u32 digest words.  A zero-length row hashes one zero final block
-(the empty-message digest).
+``hash_chunks_words`` has the port's BLAKE3 row contract: words
+``(rows, padded/4)`` int32, little-endian and zero past each row's
+length, padded a multiple of 64; lengths ``(rows,)``; returns ``(lo,
+hi)``, each ``(rows,)`` int32 holding the u32 digest words.  A
+zero-length row hashes one zero final block (the empty-message digest).
+``hash_chunks_batch`` is the plain version of the CUDA kernel in
+``blake2_kernel.py``: chunks given by start and size in a flat byte
+batch, gathered into zero-padded rows; ``plan_order`` is the kernel's
+order of the chunks.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from longtail_tpu_torch.ops.blake3 import to_int32
+from longtail_tpu_torch.ops.pack import hash_batch_by_class
 
 IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
@@ -105,3 +110,26 @@ def hash_chunks_words(words: torch.Tensor, lengths: torch.Tensor):
         out = _compress(h, m, t, n_blocks == k + 1)
         h = [torch.where(active, out[i], h[i]) for i in range(8)]
     return to_int32(h[0]), to_int32(h[1])
+
+
+def blocks_of(sizes: np.ndarray) -> np.ndarray:
+    """Compressions of each chunk, max(1, ceil(size / 64))."""
+    return np.maximum(-(-np.asarray(sizes, np.int64) // BLOCK_BYTES), 1)
+
+
+def plan_order(sizes: np.ndarray) -> np.ndarray:
+    """The batch kernel's order of the chunks: (n,) int32, a permutation
+    by descending block count (stable), so that a warp's chains have
+    nearly equal lengths and the longest start first."""
+    return np.argsort(-blocks_of(sizes), kind="stable").astype(np.int32)
+
+
+def hash_chunks_batch(batch: torch.Tensor, starts: torch.Tensor,
+                      sizes: torch.Tensor):
+    """Plain BLAKE2s-64 of chunks of a flat batch: (batch uint8, starts,
+    sizes (n,) int32) -> (lo, hi), each (n,) int32, in chunk order.
+    Chunks are grouped by power-of-two block count, and each group is
+    gathered into zero-padded rows and hashed by hash_chunks_words."""
+    return hash_batch_by_class(batch, starts, sizes,
+                               blocks_of(sizes.cpu().numpy()), BLOCK_BYTES,
+                               hash_chunks_words)

@@ -19,8 +19,9 @@ digest words.  The host ``hash_chunks`` runs it on the CPU.
 
 ``hash_chunks_batch`` is the plain version of the CUDA kernel in
 ``blake3_kernel.py``: the digests of chunks given by start and size in a
-flat byte batch, through ``ops.pack.pack_plain`` and ``hash_chunks_words``
-per power-of-two class.  ``plan_blocks`` is the kernel's host work plan.
+flat byte batch, through ``ops.pack.hash_batch_by_class`` and
+``hash_chunks_words`` per power-of-two class.  ``plan_blocks`` is the
+kernel's host work plan.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import struct
 import numpy as np
 import torch
 
-from longtail_tpu_torch.ops.pack import pack_plain
+from longtail_tpu_torch.ops.pack import hash_batch_by_class
 
 IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
@@ -266,19 +267,9 @@ def hash_chunks_batch(batch: torch.Tensor, starts: torch.Tensor,
     sizes (n,) int32) -> (lo, hi), each (n,) int32, in chunk order.
     Chunks are grouped by power-of-two leaf count and each group hashed
     as packed rows."""
-    n = starts.numel()
-    leaves = torch.from_numpy(leaves_of(sizes.cpu().numpy()))
-    cls = torch.ones_like(leaves)
-    while bool((cls < leaves).any()):
-        cls = torch.where(cls < leaves, 2 * cls, cls)
-    out = torch.zeros((2, n), dtype=torch.int32, device=batch.device)
-    for c in torch.unique(cls).tolist():
-        idx = torch.nonzero(cls == c).flatten().to(batch.device)
-        sz = sizes[idx]
-        lo, hi = hash_chunks_words(
-            pack_plain(batch, starts[idx], sz, c * LEAF_BYTES), sz)
-        out[0, idx], out[1, idx] = lo, hi
-    return out[0], out[1]
+    return hash_batch_by_class(batch, starts, sizes,
+                               leaves_of(sizes.cpu().numpy()), LEAF_BYTES,
+                               hash_chunks_words)
 
 
 def hash_chunks(data_u8, lengths) -> np.ndarray:

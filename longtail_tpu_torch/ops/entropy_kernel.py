@@ -1,13 +1,22 @@
 """The backward Huffman bit pack of the zstd literals: the wrapper of
-``csrc/hufpack.cu`` and its plain PyTorch version.
+``csrc/hufpack.cu`` and its plain PyTorch versions.
 
 The counterpart of ``longtail_tpu/ops/entropy_kernel.py``
 (``make_hufpack_rows_fn``, the Pallas bit-merge kernel) and of the XLA
-scatter formulation it replaced (``device_entropy._make_hufpack_xla``),
-with the dispatch of ``device_entropy.make_hufpack_fn``: ``hufpack``
-computes ``hufpack_plain`` for a CPU tensor and launches the kernel for
-a CUDA tensor, at every ``n_pad`` (the TPU's ``MIN_PALLAS_PAD`` and
-``% 128`` guards are Mosaic's rules, not the card's).
+scatter formulation it replaced (``device_entropy._make_hufpack_xla``).
+One kernel packs streams laid out by ``frame_inputs``:
+
+- ``hufpack_frame(lits, streams, tables, n_words)``: every Huffman
+  stream of a zstd frame, each with its own section's code table, in one
+  launch (the zstd device tier's path);
+- ``hufpack(lits, n_lit, table)``: rows of one table, the JAX package's
+  ``(S, n_pad)`` interface, as streams at each row.
+
+For a CPU tensor each wrapper computes its plain version
+(``hufpack_frame_plain``, ``hufpack_plain``); for a CUDA tensor it
+launches the kernel or raises.  The TPU's ``MIN_PALLAS_PAD`` and ``% 128``
+guards are Mosaic's rules, not the card's; the card takes streams of up
+to ``MAX_STREAM_LITS`` literals (a 128 KiB zstd block's in four streams).
 
 Contract (RFC 8878 §4.2.1): stream s's literal i has its code at bit
 offset sum(len[j] for i < j < n_lit[s]), bits stacked LSB-up, exactly the
@@ -20,13 +29,18 @@ import numpy as np
 import torch
 
 from longtail_tpu_torch import _kernels
-from longtail_tpu_torch.ops.zstd_frame import MAX_HUF_BITS
+from longtail_tpu_torch.ops.zstd_frame import BLOCK_MAX, MAX_HUF_BITS
 
 
 SOURCE = "longtail_tpu_torch/csrc/hufpack.cu"
 REPLACES = "longtail_tpu/ops/entropy_kernel.py:120"
 
 _M = 0xFFFFFFFF
+
+# literals of one stream the kernel takes (its words live in one block's
+# shared memory): a 128 KiB zstd block's literals split into four streams
+MAX_STREAM_LITS = BLOCK_MAX // 4
+LIT_ALIGN = 16              # every stream starts at a 16-byte offset
 
 
 def words_per_stream(n_pad: int) -> int:
@@ -80,26 +94,106 @@ def hufpack_plain(lits: torch.Tensor, n_lit: torch.Tensor,
             total.to(torch.int32))
 
 
+def frame_inputs(sections):
+    """The frame pack's inputs for sections [(parts, table)]: parts a list
+    of uint8 literal streams, table (256,) int32 from pack_code_table.
+    Returns (lits uint8, every stream at a LIT_ALIGN offset and the length
+    a multiple of it; streams (S, 4) int32 rows (literal offset, n_lit,
+    table index, word offset), word offsets packing words_per_stream(n_lit)
+    words a stream; tables (K, 256) int32; n_words, the words of all)."""
+    parts = [p for ps, _ in sections for p in ps]
+    streams = np.zeros((len(parts), 4), np.int32)
+    lit_off = word_off = 0
+    s = 0
+    for k, (ps, _) in enumerate(sections):
+        for p in ps:
+            streams[s] = (lit_off, len(p), k, word_off)
+            lit_off += -(-len(p) // LIT_ALIGN) * LIT_ALIGN
+            word_off += words_per_stream(len(p))
+            s += 1
+    lits = np.zeros(lit_off, np.uint8)
+    for (off, n, _, _), p in zip(streams.tolist(), parts):
+        lits[off:off + n] = p
+    tables = np.zeros((len(sections), 256), np.int32)
+    for k, (_, t) in enumerate(sections):
+        tables[k] = t
+    return lits, streams, tables, word_off
+
+
+def hufpack_frame_plain(lits: torch.Tensor, streams: torch.Tensor,
+                        tables: torch.Tensor, n_words: int):
+    """Plain frame pack: (lits uint8, streams (S, 4), tables (K, 256)
+    int32, n_words) as frame_inputs lays them out -> (words (n_words,)
+    int32 holding u32 bits, stream s's hufpack_plain words at its word
+    offset; totals (S,) int32 bit counts).  Words no stream covers are 0."""
+    dev = lits.device
+    words = torch.zeros((n_words,), dtype=torch.int32, device=dev)
+    totals = torch.zeros((streams.shape[0],), dtype=torch.int32, device=dev)
+    for s, (off, n, k, woff) in enumerate(streams.cpu().tolist()):
+        if n == 0:
+            continue
+        w, t = hufpack_plain(lits[off:off + n][None],
+                             torch.tensor([n], dtype=torch.int32), tables[k])
+        words[woff:woff + words_per_stream(n)] = w[0]
+        totals[s] = t[0]
+    return words, totals
+
+
+def hufpack_frame(lits: torch.Tensor, streams: torch.Tensor,
+                  tables: torch.Tensor, n_words: int):
+    """Kernel wrapper; same contract as hufpack_frame_plain, except that
+    words past a stream's words_per_stream(n_lit) and covered by no
+    stream are left unwritten (frame_inputs leaves none)."""
+    if lits.device.type == "cpu":
+        return hufpack_frame_plain(lits, streams, tables, n_words)
+    dev = lits.device
+    S, K = streams.shape[0], tables.shape[0]
+    _kernels.require("lits", lits, torch.uint8)
+    _kernels.require("streams", streams, torch.int32, (S, 4), dev)
+    _kernels.require("tables", tables, torch.int32, (K, 256), dev)
+    if lits.dim() != 1 or lits.numel() % LIT_ALIGN or \
+            lits.data_ptr() % LIT_ALIGN:
+        raise ValueError("lits: a 1-D byte tensor of 16-byte aligned "
+                         "16-byte words is needed")
+    words = torch.empty((n_words,), dtype=torch.int32, device=dev)
+    totals = torch.empty((S,), dtype=torch.int32, device=dev)
+    if S:
+        with torch.cuda.device(dev):
+            rc = _kernels.load().lt_hufpack(
+                lits.data_ptr(), lits.numel(), streams.data_ptr(),
+                tables.data_ptr(), words.data_ptr(), totals.data_ptr(), S, K,
+                n_words, _kernels.stream_of(lits))
+        _kernels.check(rc, "lt_hufpack")
+        _kernels.count_launch(hufpack_frame)
+    return words, totals
+
+
+hufpack_frame.LAUNCHES = 0
+
+
 def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
-    """Kernel wrapper; same contract as hufpack_plain."""
+    """Kernel wrapper; same contract as hufpack_plain.  The frame kernel
+    on the rows, row s a stream at s * n_pad of min(n_lit[s], n_pad)
+    literals, its words at s * W (no read of n_lit on the host)."""
     if lits.device.type == "cpu":
         return hufpack_plain(lits, n_lit, table)
     S, n_pad = lits.shape
+    if n_pad > MAX_STREAM_LITS or n_pad % LIT_ALIGN:
+        raise ValueError(f"rows of {n_pad} literals: the kernel takes "
+                         f"multiples of {LIT_ALIGN} up to {MAX_STREAM_LITS}")
     _kernels.require("lits", lits, torch.uint8)
     _kernels.require("n_lit", n_lit, torch.int32, (S,), lits.device)
     _kernels.require("table", table, torch.int32, (256,), lits.device)
     W = words_per_stream(n_pad)
-    words = torch.zeros((S, W), dtype=torch.int32, device=lits.device)
-    totals = torch.empty((S,), dtype=torch.int32, device=lits.device)
-    if S:
-        with torch.cuda.device(lits.device):
-            rc = _kernels.load().lt_hufpack(
-                lits.data_ptr(), n_lit.data_ptr(), table.data_ptr(),
-                words.data_ptr(), totals.data_ptr(), S, n_pad, W,
-                _kernels.stream_of(lits))
-        _kernels.check(rc, "lt_hufpack")
-        _kernels.count_launch(hufpack)
+    row = torch.arange(S, dtype=torch.int32, device=lits.device)
+    n = n_lit.clamp(0, n_pad)
+    streams = torch.stack([row * n_pad, n, torch.zeros_like(row), row * W],
+                          dim=1).contiguous()
+    words, totals = hufpack_frame(lits.view(-1), streams, table.view(1, 256),
+                                  S * W)
+    words = words.view(S, W)
+    # the kernel writes words_per_stream(n) words a row; the rest are 0
+    col = torch.arange(W, dtype=torch.int32, device=lits.device)
+    words.masked_fill_(col[None, :] >= ((n * MAX_HUF_BITS + 31) // 32
+                                        + 1)[:, None], 0)
     return words, totals
-
-
-hufpack.LAUNCHES = 0

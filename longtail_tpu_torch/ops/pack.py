@@ -3,14 +3,19 @@
 The counterpart of ``longtail_tpu/parallel/pipeline.py`` ``_pack_callable``.
 ``pack`` copies chunks, given by start and size in a flat byte batch,
 into ``(rows, padded/4)`` little-endian int32 rows, zero past each
-chunk's size: the BLAKE2 path's input, and the rows the plain BLAKE3
-batch hash (``ops.blake3.hash_chunks_batch``) runs on.  For a CPU tensor
-it computes ``pack_plain``; for a CUDA tensor it launches the kernel or
-raises.
+chunk's size: the rows of the JAX package's hash kernels and of the
+port's row interfaces (``hash_chunks_words_device``), and the rows the
+plain batch hashes (``ops.blake3.hash_chunks_batch``,
+``ops.blake2.hash_chunks_batch``) run on.  No upsync path of the port
+runs it: both hash kernels read the resident batch.  For a CPU tensor it
+computes ``pack_plain``; for a CUDA tensor it launches the kernel or
+raises.  ``pow2_cap``, ``class_floor`` and ``pow2_padded`` are the JAX
+pipeline's power-of-two size classes of those rows.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from longtail_tpu_torch import _kernels
@@ -19,6 +24,36 @@ SOURCE = "longtail_tpu_torch/csrc/pack.cu"
 REPLACES = "longtail_tpu/parallel/pipeline.py:166"
 
 _LEAF = 1024
+
+
+def pow2_cap(padded_chunk: int) -> int:
+    """Largest size class: next power-of-two multiple of 1 KiB >=
+    padded_chunk (the BLAKE3 row hash needs a power-of-two leaf count)."""
+    leaves = -(-padded_chunk // _LEAF)
+    p = 1
+    while p < leaves:
+        p *= 2
+    return p * _LEAF
+
+
+def class_floor(cfg) -> int:
+    """Smallest size class of a ChunkerConfig: the power-of-two >= 2 *
+    min_size (capped); smaller chunks pad up into it."""
+    f = _LEAF
+    target = min(2 * cfg.min_size, pow2_cap(cfg.padded_chunk))
+    while f < target:
+        f *= 2
+    return f
+
+
+def pow2_padded(sizes: np.ndarray, cap: int, floor: int = _LEAF
+                ) -> np.ndarray:
+    """Next power-of-two multiple of 1 KiB >= size, clamped to
+    [floor, cap]."""
+    leaves = np.maximum(-(-sizes // _LEAF), 1)
+    pow2 = np.uint64(1) << np.uint64(
+        np.ceil(np.log2(leaves)).astype(np.int64))
+    return np.clip(pow2.astype(np.int64) * _LEAF, floor, cap)
 
 
 def pack_plain(batch: torch.Tensor, starts: torch.Tensor,
@@ -32,6 +67,30 @@ def pack_plain(batch: torch.Tensor, starts: torch.Tensor,
     rows = torch.where(valid, batch[idx], torch.zeros((), dtype=torch.uint8,
                                                       device=batch.device))
     return rows.contiguous().view(torch.int32)
+
+
+def hash_batch_by_class(batch: torch.Tensor, starts: torch.Tensor,
+                        sizes: torch.Tensor, units: np.ndarray,
+                        unit_bytes: int, hash_rows):
+    """Plain hash of chunks of a flat batch: (batch uint8, starts, sizes
+    (n,) int32) -> (lo, hi), each (n,) int32, in chunk order.  Chunks are
+    grouped by the power of two >= their count of units (units (n,), the
+    count per chunk), each group is gathered by pack_plain into
+    zero-padded rows of class x unit_bytes, and hash_rows(words, sizes)
+    -> (lo, hi) hashes the rows."""
+    n = starts.numel()
+    units = torch.from_numpy(np.asarray(units, np.int64))
+    cls = torch.ones_like(units)
+    while bool((cls < units).any()):
+        cls = torch.where(cls < units, 2 * cls, cls)
+    out = torch.zeros((2, n), dtype=torch.int32, device=batch.device)
+    for c in torch.unique(cls).tolist():
+        idx = torch.nonzero(cls == c).flatten().to(batch.device)
+        sz = sizes[idx]
+        lo, hi = hash_rows(
+            pack_plain(batch, starts[idx], sz, c * unit_bytes), sz)
+        out[0, idx], out[1, idx] = lo, hi
+    return out[0], out[1]
 
 
 def pack(batch: torch.Tensor, starts: torch.Tensor, sizes: torch.Tensor,

@@ -1,2 +1,2 @@
 """The device chunk+hash data plane: stage 1 (scan + walk) and the
-batched pipeline (pack + hash)."""
+batched pipeline (one hash launch per batch)."""

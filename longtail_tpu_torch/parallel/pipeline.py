@@ -9,13 +9,11 @@ stream through three stages:
   ``(lanes, c_pad + 2)`` int32 comes back to the host.
 - **Stage 2 (host plan)**: a lane flagged ambiguous is re-chunked
   exactly on the host, and stage 3 is planned: the BLAKE3 kernel's work
-  plan, or BLAKE2's power-of-two size classes.
-- **Stage 3 (device)**: BLAKE3 (``ops/blake3_kernel.py``) hashes every
-  chunk of the batch in one launch, reading its bytes from the resident
-  batch; BLAKE2 (``ops/blake2_kernel.py``) runs per size class, after
-  the pack kernel (``ops/pack.py``) has copied the class's chunks into
-  aligned word rows.
-  The digests come back in one copy.
+  plan, or the BLAKE2 kernel's chunk order.
+- **Stage 3 (device)**: BLAKE3 (``ops/blake3_kernel.py``) or BLAKE2
+  (``ops/blake2_kernel.py``) hashes every chunk of the batch in one
+  launch, reading its bytes from the resident batch.  The digests come
+  back in one copy, in chunk order.
 - **Stage 4 (device, optional)**: ``submit_compress`` finds LZ match
   anchors per block of the resident batch (``parallel/device_match.py``)
   from the scan's bin-mins (``compress=True``) or from the batch's words,
@@ -41,8 +39,7 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from longtail_tpu_torch.ops import blake2_kernel, blake3, blake3_kernel
-from longtail_tpu_torch.ops.pack import pack
+from longtail_tpu_torch.ops import blake2, blake2_kernel, blake3, blake3_kernel
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 from longtail_tpu_torch.parallel.device_match import (
     bins_anchors_packed,
@@ -57,8 +54,6 @@ from longtail_tpu_torch.parallel.stage1 import (
     unpack_walk,
 )
 
-_LEAF = 1024
-
 HASH_KINDS = ("blake3", "blake2")
 
 
@@ -72,40 +67,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-# ---------------------------------------------------------------------------
-# size classes (host plan)
-# ---------------------------------------------------------------------------
-
-def pow2_cap(padded_chunk: int) -> int:
-    """Largest size class: next power-of-two multiple of 1 KiB >=
-    padded_chunk (the BLAKE3 kernel needs a power-of-two leaf count)."""
-    leaves = -(-padded_chunk // _LEAF)
-    p = 1
-    while p < leaves:
-        p *= 2
-    return p * _LEAF
-
-
-def class_floor(cfg: ChunkerConfig) -> int:
-    """Smallest size class: the power-of-two >= 2 * min_size (capped);
-    smaller chunks pad up into it."""
-    f = _LEAF
-    target = min(2 * cfg.min_size, pow2_cap(cfg.padded_chunk))
-    while f < target:
-        f *= 2
-    return f
-
-
-def _pow2_padded(sizes: np.ndarray, cap: int, floor: int = _LEAF
-                 ) -> np.ndarray:
-    """Next power-of-two multiple of 1 KiB >= size, clamped to
-    [floor, cap]."""
-    leaves = np.maximum(-(-sizes // _LEAF), 1)
-    pow2 = np.uint64(1) << np.uint64(
-        np.ceil(np.log2(leaves)).astype(np.int64))
-    return np.clip(pow2.astype(np.int64) * _LEAF, floor, cap)
 
 
 def _prefetch(it: Iterable, depth: int) -> Iterator:
@@ -167,8 +128,6 @@ class DevicePartIndexer:
         # in-flight batches per stage: deep enough that each stage's one
         # host wait overlaps other batches' device work
         self.queue_depth = 3
-        self._cap = pow2_cap(self.cfg.padded_chunk)
-        self._floor = class_floor(self.cfg)
         self._table = hash_table(self.device)
         self._pinned = self.device.type == "cuda"
 
@@ -231,8 +190,8 @@ class DevicePartIndexer:
 
     def plan_hash(self, entry, keep_words: bool = False):
         """Stage 2: wait for the walk output, repair flagged lanes, plan
-        the hash; stage 3: queue the hash (BLAKE3: one launch; BLAKE2:
-        pack + hash per size class) and the async fetch of all digests.
+        the hash; stage 3: queue the hash (one launch) and the async fetch
+        of all digests.
 
         keep_words=True appends the resident batch viewed as int32 words
         and the scan's bin-mins (or None) to the returned entry, so that
@@ -267,60 +226,31 @@ class DevicePartIndexer:
             else np.zeros(0, np.int64)
         flat_sizes = np.concatenate(all_sizes) if all_sizes \
             else np.zeros(0, np.int64)
-        if self.hash_kind == "blake3":
-            res, order = self._hash_blake3(dev_rows, flat_starts, flat_sizes)
-        else:
-            res, order = self._hash_classes(dev_rows, flat_starts, flat_sizes)
-        res_host, ev = self._fetch(res)
-        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev, order)
+        res_host, ev = self._fetch(self._hash(dev_rows, flat_starts,
+                                              flat_sizes))
+        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev)
         if keep_words:
             out += (dev_rows.view(torch.int32), bins)
         return out
 
-    def _hash_blake3(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
-        """Every chunk in one launch of the BLAKE3 kernel, read from the
-        resident batch; one upload of starts, sizes and the work plan.
-        Returns ((2, n) digests, their chunk order: the identity)."""
+    def _hash(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
+        """Every chunk in one launch of the hash kernel, read from the
+        resident batch; one upload of starts, sizes and the kernel's work
+        plan (BLAKE3: plan_blocks; BLAKE2: its chunk order, plan_order).
+        Returns the (2, n) digests in chunk order."""
         n = len(sizes)
-        plan = blake3.plan_blocks(blake3.leaves_of(sizes))
+        if self.hash_kind == "blake3":
+            plan = blake3.plan_blocks(blake3.leaves_of(sizes))
+            kernel = blake3_kernel.hash_chunks_device
+        else:
+            plan = blake2.plan_order(sizes)
+            kernel = blake2_kernel.hash_chunks_device
         blob = self._host_buffer((2 * n + len(plan),), torch.int32)
         bnp = blob.numpy()
         bnp[:n], bnp[n:2 * n], bnp[2 * n:] = starts, sizes, plan
         blob = self._upload(blob)
-        lo, hi = blake3_kernel.hash_chunks_device(
-            dev_rows, blob[:n], blob[n:2 * n], blob[2 * n:])
-        return torch.stack([lo, hi]), np.arange(n)
-
-    def _hash_classes(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
-        """BLAKE2: per power-of-two size class, pack the class's chunks
-        into aligned rows and hash them; one upload of each class's starts
-        then sizes.  Returns ((2, n) digests, their chunk order)."""
-        padded = _pow2_padded(sizes, self._cap, self._floor)
-        classes = [(int(c), np.flatnonzero(padded == c))
-                   for c in np.unique(padded)]
-        blob = self._host_buffer((2 * len(sizes),), torch.int32)
-        bnp = blob.numpy()
-        o = 0
-        for _, idx in classes:
-            r = len(idx)
-            bnp[o:o + r] = starts[idx]
-            bnp[o + r:o + 2 * r] = sizes[idx]
-            o += 2 * r
-        blob = self._upload(blob)
-        res = []
-        o = 0
-        for cls, idx in classes:
-            r = len(idx)
-            st, sz = blob[o:o + r], blob[o + r:o + 2 * r]
-            o += 2 * r
-            lo, hi = blake2_kernel.hash_chunks_words_device(
-                pack(dev_rows, st, sz, cls), sz)
-            res.append(torch.stack([lo, hi]))
-        res = torch.cat(res, dim=1) if res else torch.zeros(
-            (2, 0), dtype=torch.int32, device=self.device)
-        order = np.concatenate([idx for _, idx in classes]) if classes \
-            else np.zeros(0, np.int64)
-        return res, order
+        lo, hi = kernel(dev_rows, blob[:n], blob[n:2 * n], blob[2 * n:])
+        return torch.stack([lo, hi])
 
     # -- stage 4 ----------------------------------------------------------
 
@@ -332,7 +262,7 @@ class DevicePartIndexer:
         compress=True only the bin-level sorts run (the scan already read
         the bytes); otherwise the bin-mins come from the resident words
         first.  Collect with collect_compress()."""
-        words, bins = entry[6], entry[7]
+        words, bins = entry[5], entry[6]
         if bins is not None:
             packed = bins_anchors_packed(
                 bins, block_bytes // 256, max_offset_words=max_offset_words)
@@ -354,12 +284,11 @@ class DevicePartIndexer:
     def retire(self, entry):
         """Stage 3 drain: wait for the digests and yield
         (tag, sizes u32, hashes u64) per part in submission order."""
-        tags, lane_sizes, counts, res_host, ev, order = entry[:6]
+        tags, lane_sizes, counts, res_host, ev = entry[:5]
         if ev is not None:
             ev.synchronize()
         res = res_host.numpy().view(np.uint32).astype(np.uint64)
-        hashes = np.empty(int(counts.sum()), dtype=np.uint64)
-        hashes[order] = res[0] | (res[1] << np.uint64(32))
+        hashes = res[0] | (res[1] << np.uint64(32))
         off = 0
         for tag, sz, cnt in zip(tags, lane_sizes, counts):
             yield tag, sz, hashes[off: off + int(cnt)]

@@ -226,7 +226,7 @@ def test_hufpack_skewed_code_lengths():
 def test_code_table_refuses_long_codes():
     with pytest.raises(ValueError):
         entropy_kernel.pack_code_table([0, 1], [1, 12])
-    assert entropy_kernel.hufpack.LAUNCHES == 0
+    assert entropy_kernel.hufpack_frame.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("n", [0, 1, 40, 63, 64, 500, 1023, 1024, 5000,
@@ -244,6 +244,170 @@ def test_encode_literals_match_jax_and_host(n):
     assert got == jentropy.encode_literals_device(lits)
     if n <= 1 << 16:
         assert got == zstd_frame._encode_literals(lits)
+
+
+def _frame_sections(seed):
+    """A ragged frame's sections: streams of 1 to 32768 literals under
+    three tables (a 128 KiB section's four full streams, one literal, a
+    ragged four-stream section), and a section with 1-bit and 11-bit
+    codes."""
+    rng = np.random.default_rng(seed)
+    big = _lits(seed, 4, 32768)
+    mid = _lits(seed + 1, 1, 1203)[0]
+    skew = _lits(seed + 2, 1, 5000, skewed=True)[0]
+    cases = [[*big], [big[1, :1]],
+             [mid[:301], mid[301:602], mid[602:903], mid[903:]],
+             [skew[:1250], skew[1250:2500], skew[2500:3750], skew[3750:]]]
+    out = []
+    for parts in cases:
+        # the one-literal section takes a table of its row's literals
+        cv, cl = _codes(big[1:2] if len(parts[0]) == 1
+                        else np.concatenate(parts)[None])
+        out.append((parts, cv, cl))
+    assert max(out[3][2]) == zstd_frame.MAX_HUF_BITS and \
+        min(x for x in out[3][2] if x) == 1
+    rng.shuffle(out)
+    return out
+
+
+def test_hufpack_frame_plain_matches_streams_xla_and_pallas():
+    """hufpack_frame_plain over a ragged frame (several tables, streams of
+    1 to 32768 literals, 1-bit and 11-bit codes) equals hufpack_plain per
+    stream, the JAX package's XLA scatter oracle and its Pallas kernel in
+    interpret mode per section, and the host encoder's stream bits; the
+    wrapper on CPU tensors is the plain version and launches nothing."""
+    sections = _frame_sections(12)
+    jobs = [(parts, entropy_kernel.pack_code_table(cv, cl))
+            for parts, cv, cl in sections]
+    lits, streams, tables, n_words = entropy_kernel.frame_inputs(jobs)
+    assert (streams[:, 0] % entropy_kernel.LIT_ALIGN == 0).all()
+    assert len(streams) == 13 and len(tables) == 4
+    assert streams[:, 1].min() == 1 and streams[:, 1].max() == 32768
+    args = [torch.from_numpy(x) for x in (lits, streams, tables)]
+    words, totals = entropy_kernel.hufpack_frame_plain(*args, n_words)
+    for g, w in zip(entropy_kernel.hufpack_frame(*args, n_words),
+                    (words, totals)):
+        assert torch.equal(g, w)
+    assert entropy_kernel.hufpack_frame.LAUNCHES == 0
+    words = words.numpy().view(np.uint32)
+    totals = totals.numpy()
+    s = 0
+    for parts, cv, cl in sections:
+        n_pad = max(jek.MIN_PALLAS_PAD,
+                    1 << (max(len(p) for p in parts) - 1).bit_length())
+        rows = np.zeros((len(parts), n_pad), np.uint8)
+        n_lit = np.array([len(p) for p in parts], np.int32)
+        for r, p in enumerate(parts):
+            rows[r, :len(p)] = p
+        wx, tx = jentropy._make_hufpack_xla(n_pad, 6, len(parts))(
+            rows, n_lit, cv, cl)
+        wp, tp = jek.make_hufpack_rows_fn(n_pad, len(parts))(
+            rows.reshape(-1, 128), n_lit, jek.pack_code_table(cv, cl))
+        for r, p in enumerate(parts):
+            off, n, k, woff = streams[s]
+            W = entropy_kernel.words_per_stream(n)
+            got = words[woff:woff + W]
+            pw, pt = entropy_kernel.hufpack_plain(
+                torch.from_numpy(p[None].copy()),
+                torch.tensor([n], dtype=torch.int32), args[2][k])
+            np.testing.assert_array_equal(got, pw.numpy()[0].view(np.uint32))
+            assert int(totals[s]) == int(pt[0]) == int(tx[r]) == int(tp[r])
+            np.testing.assert_array_equal(got, np.asarray(wx)[r, :W])
+            np.testing.assert_array_equal(got, np.asarray(wp)[r, :W])
+            assert not np.asarray(wx)[r, W:].any()
+            host = zstd_frame._huf_encode_stream(p.tobytes(), cv.tolist(),
+                                                 cl.tolist())
+            w = got.copy()
+            w[totals[s] >> 5] |= np.uint32(1 << (totals[s] & 31))
+            assert w.tobytes()[: (totals[s] + 8) // 8] == host
+            s += 1
+    assert s == len(streams)
+
+
+def test_device_histograms_match_jax_per_section():
+    """device_histograms, one call over sections of 64 bytes to 128 KiB
+    (exact up to 64 KiB, strided samples past it), equals the JAX
+    package's device_histogram section by section."""
+    rng = np.random.default_rng(14)
+    sizes = [64, 1000, 65536, 65537, 100003, 131072]
+    sections = [np.frombuffer(structured(n, n), np.uint8) for n in sizes]
+    sections[1] = rng.integers(0, 256, 1000).astype(np.uint8)
+    got = device_entropy.device_histograms(sections, "cpu")
+    assert got.shape == (len(sizes), 256)
+    for g, sec in zip(got, sections):
+        np.testing.assert_array_equal(g, jentropy.device_histogram(sec))
+    assert device_entropy.device_histograms([], "cpu").shape == (0, 256)
+
+
+def _mixed_frame(seed):
+    """1 MiB in 128 KiB zstd blocks and hand-made sequences covering each
+    literal-section kind: text and skewed bytes (Huffman, sampled
+    histograms), noise (raw literals, and a raw block: the compressed one
+    does not shrink it), 20 literals before a match (short, raw), 30
+    equal ones (RLE), an exact repeat (no literals) and a ragged last
+    block."""
+    rng = np.random.default_rng(seed)
+    k = 1 << 17
+    text = structured(seed, k)
+    skew = rng.choice(256, k, p=np.r_[[0.75], np.full(255, 0.25 / 255)])
+    src = b"".join([
+        text, rng.integers(0, 256, k, np.uint8).tobytes(),
+        rng.integers(0, 256, 20, np.uint8).tobytes() + text[:k - 20],
+        bytes([7]) * 30 + text[:k - 30], text, structured(seed + 1, k),
+        skew.astype(np.uint8).tobytes(), structured(seed + 2, k - 100)])
+    seqs = np.array([(2 * k + 20, 2 * k + 20, k - 20, 0),
+                     (3 * k + 30, 30, k - 30, 0), (4 * k, 0, k, 0)],
+                    np.uint32)
+    return src, seqs
+
+
+def test_frame_of_every_section_kind_matches_jax_and_decodes():
+    """frame_from_sequences on _mixed_frame: byte-identical to the JAX
+    package's, decoded by the from-spec decoder and libzstd; the frame
+    holds raw, RLE and Huffman literal sections, an empty one and a raw
+    block."""
+    src, seqs = _mixed_frame(15)
+    got = device_entropy.frame_from_sequences(src, seqs, "cpu")
+    assert got == jentropy.frame_from_sequences(src, seqs)
+    assert zstd_frame.decompress(got, len(src)) == src
+    assert zstd.decompress(got, len(src)) == src
+    lits = [x for _, _, x in device_entropy.literal_sections(src, seqs)]
+    kinds = [s[0] & 3 for s in device_entropy.encode_sections(lits, "cpu")]
+    assert set(kinds) == {0, 1, 2} and 0 in map(len, lits)
+    assert sorted(map(len, lits))[:3] == [0, 20, 30]
+    # block types: a raw block (the noise) among compressed ones
+    off = 5 + 4
+    types = []
+    while True:
+        h = int.from_bytes(got[off:off + 3], "little")
+        types.append((h >> 1) & 3)
+        off += 3 + (h >> 3)
+        if h & 1:
+            break
+    assert types.count(0) == 1 and types.count(2) == 7
+
+
+def test_frame_runs_one_histogram_call_and_one_pack_launch(monkeypatch):
+    """frame_from_sequences of a frame whose sections need tables makes
+    one device_histograms call and one hufpack_frame call, as do
+    zstd_device.compress_block's frames (one frame each)."""
+    calls = {"hist": 0, "pack": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(device_entropy, "device_histograms", counted(
+        "hist", device_entropy.device_histograms))
+    monkeypatch.setattr(device_entropy, "hufpack_frame", counted(
+        "pack", device_entropy.hufpack_frame))
+    src, seqs = _mixed_frame(16)
+    device_entropy.frame_from_sequences(src, seqs, "cpu")
+    assert calls == {"hist": 1, "pack": 1}
+    zstd_device.compress_block(structured(17, 3 << 17), device="cpu")
+    assert calls == {"hist": 2, "pack": 2}
 
 
 # ---------------------------------------------------------------------------

@@ -101,15 +101,15 @@ def test_pack_plain_zero_rows_and_batch_end():
 def test_size_classes_match_jax(target):
     cfg, jcfg = ChunkerConfig.from_target(target), \
         JChunkerConfig.from_target(target)
-    cap = pipeline.pow2_cap(cfg.padded_chunk)
-    floor = pipeline.class_floor(cfg)
+    cap = tpack.pow2_cap(cfg.padded_chunk)
+    floor = tpack.class_floor(cfg)
     assert cap == jpipeline.pow2_cap(jcfg.padded_chunk)
     assert floor == jpipeline.class_floor(jcfg)
     sizes = np.unique(np.concatenate([
         np.arange(1, min(cfg.max_size, 4096) + 1),
         np.linspace(1, cfg.max_size, 997).astype(np.int64)]))
     np.testing.assert_array_equal(
-        pipeline._pow2_padded(sizes, cap, floor),
+        tpack.pow2_padded(sizes, cap, floor),
         jpipeline._pow2_padded(sizes, cap, floor))
 
 
@@ -140,19 +140,18 @@ def test_index_stream_matches_host_oracle():
 
 @pytest.mark.parametrize("hash_kind", ["blake3", "blake2"])
 def test_blake3_hashes_the_batch_without_pack(monkeypatch, hash_kind):
-    """plan_hash with BLAKE3 makes one hash_chunks_device call on the
-    resident batch and no pack call, with the digests in chunk order;
-    BLAKE2 still packs each size class.  Both equal the host oracle."""
+    """plan_hash makes one hash_chunks_device call of its hash (BLAKE3 or
+    BLAKE2) on the resident batch and no pack call, with the digests in
+    chunk order, equal to the host oracle."""
     import hashlib
 
-    from longtail_tpu_torch.ops import blake3_kernel
+    from longtail_tpu_torch.ops import blake2_kernel, blake3_kernel
 
     def blake2_64(data: bytes) -> int:
         return int.from_bytes(hashlib.blake2s(data, digest_size=8).digest(),
                               "little")
 
-    calls = {"pack": 0, "batch": 0}
-    pack, batch_hash = pipeline.pack, blake3_kernel.hash_chunks_device
+    calls = {"pack": 0, "blake3": 0, "blake2": 0}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -160,19 +159,18 @@ def test_blake3_hashes_the_batch_without_pack(monkeypatch, hash_kind):
             return fn(*args)
         return wrapper
 
-    monkeypatch.setattr(pipeline, "pack", counted("pack", pack))
-    monkeypatch.setattr(blake3_kernel, "hash_chunks_device",
-                        counted("batch", batch_hash))
+    for name, mod, attr in (("pack", tpack, "pack"),
+                            ("blake3", blake3_kernel, "hash_chunks_device"),
+                            ("blake2", blake2_kernel, "hash_chunks_device")):
+        monkeypatch.setattr(mod, attr, counted(name, getattr(mod, attr)))
     rng = np.random.default_rng(8)
     ix = pipeline.DevicePartIndexer(TARGET, "cpu", lanes=2,
                                     hash_kind=hash_kind)
     parts = [(i, rng.integers(0, 256, n, dtype=np.uint8))
              for i, n in enumerate([ix.part_bytes, 5000])]
     got = list(ix.retire(ix.plan_hash(ix.submit_host(parts))))
-    if hash_kind == "blake3":
-        assert calls == {"pack": 0, "batch": 1}
-    else:
-        assert calls["pack"] >= 1 and calls["batch"] == 0
+    assert calls == {"pack": 0, "blake3": int(hash_kind == "blake3"),
+                     "blake2": int(hash_kind == "blake2")}
     for (_, sizes, hashes), (_, data) in zip(got, parts):
         ends = np.cumsum(sizes.astype(np.int64))
         want = [(jblake3.hash64 if hash_kind == "blake3" else

@@ -15,8 +15,8 @@ the shared lookups or the tree merge replaced by register arithmetic,
 the table fill skipped, fewer blocks per SM, the scan's candidate filter
 on d's odd part), and times each build's kernel on one 64 MiB batch of
 the structured data beside the kernel's own, the scan's two filters
-also at the 1 KiB target's discriminator, each case once per round.  The variant builds compute wrong results;
-only their times are of use.
+also at the 1 KiB target's discriminator, each case once per round.  The
+variant builds compute wrong results; only their times are of use.
 """
 import argparse
 import collections
@@ -76,9 +76,11 @@ timed(compressblockstore, "compress_block", "compress_block (thread sum)")
 timed(zstd_device, "fast_block_anchors", "zstd: anchors (device sorts, copies)")
 timed(zstd_device, "sequences_from_anchors", "zstd: native sequence walk")
 timed(zstd_device, "frame_from_sequences", "zstd: frame assembly")
-timed(device_entropy, "device_histogram", "zstd frame: histogram (device)")
+timed(device_entropy, "device_histograms",
+      "zstd frame: histograms (device, one call a frame)")
 timed(zstd_frame, "build_huffman", "zstd frame: build_huffman (host)")
-timed(device_entropy, "_pack_streams_device", "zstd frame: hufpack + copies")
+timed(device_entropy, "pack_streams",
+      "zstd frame: hufpack + copies (one launch a frame)")
 timed(zstd_frame, "_encode_sequences",
       "zstd frame: _encode_sequences (host)")
 timed(device_lz4, "block_anchors", "lz4: anchors (device sorts, copies)")
