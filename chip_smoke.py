@@ -14,7 +14,8 @@ line):
 3. kernels: each of the six kernels against its plain PyTorch version on
    the card at the main path's shapes, demanding exact equality (all
    integer), with CUDA-event times of both, the kernel's own device
-   time under torch.profiler and its bound (the larger of its least
+   time under torch.profiler (by CUDA events behind a spin kernel where
+   the profiler records no launch) and its bound (the larger of its least
    bytes over 3.35 TB/s and its integer operations over the card's
    int32 rate): scan (bins output included) and walk on one 64 MiB batch
    of 2 x 32 MiB parts, one ragged, the walk also on adversarial
@@ -53,7 +54,29 @@ line):
 6. stage 4: DevicePartIndexer(compress=True) over a few batches, anchors
    from the scan's bins equal to those from the words, every block
    assembled by the host LZ4 walk and decoded; scan, walk and BLAKE3
-   each launched in the compress=True batches, pack never; prints GB/s.
+   each launched in the compress=True batches, pack never; prints GB/s;
+7. mesh upsync: api.upsync(mesh=["cuda:0", "cuda:0"]) of the tree with
+   LZ4 device codecs (two indexers on the card), its .lvi equal to
+   phase 4's LZ4 .lvi, BLAKE3 once per batch over both indexers; prints
+   wall and GB/s beside phase 4's LZ4 upsync;
+8. distributed steps: an NCCL group of world size 1 on the card runs
+   sharded_chunk_step and sharded_index_step on one 64 MiB batch of the
+   tree; sizes and the unique set equal DevicePartIndexer's for it;
+9. two processes: ``python -m longtail_tpu_torch.parallel.multihost``
+   twice on the card (compute mode checked first), host arrays over
+   gloo, LZ4 blocks; the .lvi and .lrb set equal phase 4's LZ4 run and
+   the sharded downsync reproduces the tree; prints the wall;
+10. pack: ``pack --device`` (zstd) of the BLAKE2 phase's smaller tree
+   byte-identical to ``pack --device cpu``, and unpack reproduces it;
+11. stale target: a downsync of that archive over the unpacked tree with
+   one file changed, device="cuda", scans the target on the card and
+   reproduces the tree;
+12. device decode: decode_block_device on full 8 MiB LZ4 blocks of phase
+   4's store, byte-equal to host decode; ms per block and GB/s of both.
+
+Phases 7-11 each set every launch count to 0 before the path and read
+them after (phase 9's from its workers' last lines): scan, walk and
+BLAKE3 must launch on each, the Huffman pack on the zstd pack.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
@@ -207,14 +230,47 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spin_ms(fn, reps: int) -> float:
+    """Mean device time of fn() (one asynchronous launch) by CUDA events
+    around reps calls queued behind a spin kernel that outlasts their
+    host submission, so the events see the launches back to back.  The
+    spin starts at 4x the submission's host time and grows until the
+    start event is still pending when the last call has been queued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(max(time.perf_counter() - t0, 1e-3) * 4 * CLOCK_HZ)
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the spin never outlasted the host's submission")
+
+
 def device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device time of one launch of the CUDA kernel whose name holds
     `kernel`, under torch.profiler over reps calls of fn() (one launch
     each) after one warm-up: the kernel's own time, without the wrapper's
     host submission, which back-to-back CUDA events also see when the
     kernel is shorter than it.  The mean is over the launches the
-    profiler recorded, which may be fewer than reps; a session that
-    recorded none is run again, up to three times."""
+    profiler recorded, which may be fewer than reps.  The profiler's
+    CUDA tracing sometimes records no kernel at all for the rest of the
+    process: after three sessions that saw no launch, the time is taken
+    by spin_ms instead, and a line says so."""
     import torch
 
     fn()
@@ -229,7 +285,10 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         seen = sum(e.count for e in hits)
         if seen:
             return sum(e.device_time_total for e in hits) / 1e3 / seen
-    raise AssertionError(f"the profiler saw no launch of {kernel}")
+    ms = spin_ms(fn, reps)
+    log(f"{kernel}: the profiler saw no launch in 3 sessions; {ms:.4f} ms "
+        f"of device time by CUDA events behind a spin")
+    return ms
 
 
 def max_abs_err(got, want) -> int:
@@ -851,6 +910,17 @@ def store_summary(store_dir: str, codec: str) -> dict:
     return out
 
 
+def reset(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.LAUNCHES = 0
+
+
+def require_launches(name: str, counts: dict, need) -> None:
+    for k in need:
+        if counts[k] <= 0:
+            raise AssertionError(f"the {name} path never launched {k}")
+
+
 def stage4(src: str, n_batches: int, wrappers: dict) -> None:
     """Stage 4 over the first batches of the tree's large files:
     DevicePartIndexer(compress=True) with plan_hash(keep_words=True) ->
@@ -890,8 +960,7 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
     run(ix[True], batches[0])                       # warm-up
     torch.cuda.synchronize()
     n_anchors = 0
-    for w in wrappers.values():
-        w.LAUNCHES = 0
+    reset(wrappers)
     t0 = time.perf_counter()
     got = [run(ix[True], b) for b in batches[1:]]
     torch.cuda.synchronize()
@@ -902,9 +971,7 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
         f"chunk+hash+compress anchors {wall:.3f} s = "
         f"{n_bytes / wall / 1e9:.3f} GB/s (one batch at a time); "
         f"launches {counts}")
-    for k in ("scan", "walk", "blake3"):
-        if counts[k] <= 0:
-            raise AssertionError(f"the stage-4 path never launched {k}")
+    require_launches("stage-4", counts, ("scan", "walk", "blake3"))
     if counts["pack"]:
         raise AssertionError("the BLAKE3 stage-4 path launched pack")
     blocks = 0
@@ -932,6 +999,300 @@ def stage4(src: str, n_batches: int, wrappers: dict) -> None:
         f"(anchor cap {device_match.FAST_CAP} per block)")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def lrb_set(store_dir: str) -> set:
+    return {f for _, _, fs in os.walk(store_dir) for f in fs
+            if f.endswith(".lrb")}
+
+
+def mesh_phase(src: str, total: int, tmp: str, lz4_wall: float,
+               wrappers: dict, batches) -> dict:
+    """Phase 7: api.upsync over two indexers on the card, LZ4 device
+    codecs; its .lvi must equal phase 4's LZ4 .lvi."""
+    import torch
+
+    from longtail_tpu_torch import api
+    from longtail_tpu_torch.formats import constants as C
+    from longtail_tpu_torch.stores.compressblockstore import (
+        CompressBlockStore,
+    )
+    from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
+    from longtail_tpu_torch.stores.storage import FSStorage
+
+    fs = FSStorage()
+    store = CompressBlockStore(FSBlockStore(
+        fs, os.path.join(tmp, "store_mesh")), device="cuda")
+    reset(wrappers)
+    batches.BATCHES = 0
+    t0 = time.perf_counter()
+    vi, _ = api.upsync(fs, src, store,
+                       compression_tag=C.COMPRESSION_TYPE_LZ4_DEFAULT,
+                       device="cuda", mesh=["cuda:0", "cuda:0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    log(f"mesh upsync (2 indexers on cuda:0, LZ4): {wall:.3f} s, "
+        f"{total / wall / 1e9:.3f} GB/s (phase 4's LZ4 upsync {lz4_wall:.3f}"
+        f" s, {total / lz4_wall / 1e9:.3f} GB/s); launches {counts}; "
+        f"{batches.BATCHES} batches")
+    require_launches("mesh", counts, ("scan", "walk", "blake3"))
+    if counts["blake3"] != batches.BATCHES or counts["pack"]:
+        raise AssertionError("the mesh path must launch BLAKE3 once per "
+                             "batch and pack never")
+    lvi = open(os.path.join(tmp, "lz4.lvi"), "rb").read()
+    if vi.to_bytes() != lvi:
+        raise AssertionError("mesh upsync: .lvi differs from phase 4's LZ4")
+    log("mesh upsync: .lvi byte-identical to phase 4's LZ4 upsync")
+    return counts
+
+
+def distributed_phase(src: str, wrappers: dict) -> dict:
+    """Phase 8: the all-gather dedup steps in an NCCL group of world size
+    1 on the card, on one 64 MiB batch of the tree's parts, against
+    DevicePartIndexer's sizes and hashes for that batch."""
+    import torch
+    import torch.distributed as dist
+
+    from longtail_tpu_torch.parallel import distributed
+    from longtail_tpu_torch.parallel.pipeline import DevicePartIndexer
+
+    ix = DevicePartIndexer(32768, "cuda")
+    P, B = ix.part_bytes, ix.lanes
+    files = sorted((os.path.join(d, f) for d, _, fs in os.walk(src)
+                    for f in fs), key=lambda p: (-os.path.getsize(p), p))
+    parts = []
+    for path in files[:B]:          # the first parts of the largest files
+        data = np.fromfile(path, np.uint8)
+        parts += [data[o:o + P] for o in range(0, len(data), P)]
+    parts = parts[:B]
+    want = list(ix.retire(ix.plan_hash(ix.submit_host(
+        list(enumerate(parts))))))
+    rows = np.zeros((B, P), np.uint8)
+    lengths = np.array([len(p) for p in parts], np.int32)
+    for b, p in enumerate(parts):
+        rows[b, :len(p)] = p
+    batch = torch.from_numpy(rows).to("cuda")
+    slots = distributed.default_dedup_slots(ix.cfg, B, P)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        reset(wrappers)
+        t0 = time.perf_counter()
+        sizes, _, _, ulo, uhi, n, ov = distributed.sharded_chunk_step(
+            batch, lengths, ix.cfg, slots)
+        torch.cuda.synchronize()
+        t_chunk = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, isizes, iulo, iuhi, i_n = distributed.sharded_index_step(
+            batch, lengths, ix.cfg)
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t0
+        counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    finally:
+        dist.destroy_process_group()
+    uniq = np.unique(np.concatenate([h for _, _, h in want]))
+    for name, s, u in (("sharded_chunk_step", sizes,
+                        distributed.host_unique_hashes(ulo, uhi, n)),
+                       ("sharded_index_step", isizes,
+                        distributed.host_unique_hashes(iulo, iuhi, i_n))):
+        s = s.cpu().numpy()
+        for b, (_, sz, _) in enumerate(want):
+            if not (np.array_equal(s[b, :len(sz)], sz)
+                    and not s[b, len(sz):].any()):
+                raise AssertionError(f"{name}: sizes of lane {b} differ")
+        if not np.array_equal(u, uniq):
+            raise AssertionError(f"{name}: unique set differs from "
+                                 "np.unique of the indexer's hashes")
+    if int(ov):
+        raise AssertionError(f"sharded_chunk_step overflowed {slots} slots")
+    log(f"distributed steps (NCCL, world size 1): {B} x {P >> 20} MiB, "
+        f"{sum(len(s) for _, s, _ in want)} chunks, {len(uniq)} unique, "
+        f"dedup slots {slots}; sharded_chunk_step {t_chunk:.3f} s, "
+        f"sharded_index_step {t_index:.3f} s; sizes and unique set equal "
+        f"the indexer's; launches {counts}")
+    require_launches("distributed", counts, ("scan", "walk", "blake3"))
+    return counts
+
+
+def multihost_phase(src: str, tmp: str) -> dict:
+    """Phase 9: two processes of the multihost dry run on the card, LZ4
+    blocks into one store; .lvi and .lrb set against phase 4's LZ4 run,
+    the sharded downsync against the tree."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"compute mode: {mode}")
+    if mode.splitlines()[0] != "Default":
+        raise AssertionError(f"two processes on one card need compute mode "
+                             f"Default, not {mode}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "out_mh")
+    env = dict(os.environ, PYTHONPATH=repo, LT_MH_NPROC="2",
+               LT_MH_COORD=f"127.0.0.1:{free_port()}", LT_MH_SRC=src,
+               LT_MH_STORE=os.path.join(tmp, "store_mh"),
+               LT_MH_LVI=os.path.join(tmp, "mh.lvi"), LT_MH_OUT=out,
+               LT_MH_TCS="32768", LT_MH_DEVICE="cuda")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "longtail_tpu_torch.parallel.multihost"],
+        env=dict(env, LT_MH_PID=str(r)), cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {r} exited {p.returncode}"
+                                 f":\n{o[-3000:]}")
+    counts = [json.loads(o.strip().splitlines()[-1])["launches"]
+              for o in outs]
+    log(f"two processes on cuda:0 (gloo host arrays, LZ4): wall "
+        f"{wall:.3f} s including both processes' start; launches per rank "
+        f"{counts}")
+    for c in counts:
+        require_launches("multihost", c, ("scan", "walk", "blake3"))
+    lvi = open(os.path.join(tmp, "lz4.lvi"), "rb").read()
+    if open(os.path.join(tmp, "mh.lvi"), "rb").read() != lvi:
+        raise AssertionError("multihost: .lvi differs from phase 4's LZ4")
+    blocks = lrb_set(os.path.join(tmp, "store_mh"))
+    if blocks != lrb_set(os.path.join(tmp, "store_lz4")):
+        raise AssertionError("multihost: .lrb set differs from phase 4's")
+    log(f"multihost: .lvi byte-identical to phase 4's LZ4, {len(blocks)} "
+        f"blocks as phase 4's; sharded downsync: {same_tree(src, out)} "
+        f"files byte-identical")
+    shutil.rmtree(out)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def pack_phase(src: str, tmp: str, wrappers: dict) -> tuple:
+    """Phase 10: pack --device (zstd) against pack --device cpu, one
+    worker each so that blocks land in the archive in order; unpack."""
+    import torch
+
+    from longtail_tpu_torch import cli
+
+    las = {d: os.path.join(tmp, f"{d}.la") for d in ("cuda", "cpu")}
+    walls = {}
+    for d in ("cuda", "cpu"):
+        reset(wrappers)
+        t0 = time.perf_counter()
+        rc = cli.main(["--workers", "1", "pack", "--source-path", src,
+                       "--target-path", las[d], "--device", d])
+        torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"pack --device {d} exited {rc}")
+        if d == "cuda":
+            counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    if open(las["cuda"], "rb").read() != open(las["cpu"], "rb").read():
+        raise AssertionError("pack --device: .la differs from --device cpu")
+    out = os.path.join(tmp, "unpacked")
+    if cli.main(["unpack", "--source-path", las["cuda"], "--target-path",
+                 out]) != 0:
+        raise AssertionError("unpack failed")
+    log(f"pack --device (zstd, 1 worker): {walls['cuda']:.3f} s, "
+        f"--device cpu {walls['cpu']:.3f} s; .la byte-identical "
+        f"({os.path.getsize(las['cuda'])} bytes); launches {counts}; "
+        f"unpack: {same_tree(src, out)} files byte-identical")
+    require_launches("pack", counts, ("scan", "walk", "blake3", "hufpack"))
+    return counts, las["cuda"], out
+
+
+def stale_phase(src: str, la: str, out: str, wrappers: dict) -> dict:
+    """Phase 11: change one file of the unpacked tree, downsync the
+    archive over it with device="cuda": the target scan runs on the
+    card, and the tree comes back."""
+    import torch
+
+    from longtail_tpu_torch import api
+    from longtail_tpu_torch.stores.archiveblockstore import (
+        ArchiveBlockStoreReader,
+    )
+    from longtail_tpu_torch.stores.compressblockstore import (
+        CompressBlockStore,
+    )
+    from longtail_tpu_torch.stores.storage import FSStorage
+
+    files = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs]
+    victim = max(files, key=os.path.getsize)
+    with open(victim, "r+b") as f:
+        f.seek(os.path.getsize(victim) // 2)
+        f.write(b"stale")
+    fs = FSStorage()
+    reader = ArchiveBlockStoreReader(fs, la)
+    reset(wrappers)
+    t0 = time.perf_counter()
+    api.downsync(CompressBlockStore(reader), fs, out,
+                 reader.archive.version_index, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    log(f"stale-target downsync (device cuda, {os.path.relpath(victim, out)}"
+        f" changed): {wall:.3f} s; launches {counts}; "
+        f"{same_tree(src, out)} files byte-identical")
+    require_launches("stale-target downsync", counts,
+                     ("scan", "walk", "blake3"))
+    return counts
+
+
+def decode_phase(tmp: str) -> None:
+    """Phase 12: device LZ4 decode of full 8 MiB blocks of phase 4's LZ4
+    store against host decode: the host parse, the device resolve by
+    CUDA events, and each whole call by the host clock."""
+    import torch
+
+    from longtail_tpu_torch.ops import lz4
+    from longtail_tpu_torch.parallel import device_decode
+
+    blocks = [(payload, raw) for _, _, raw, payload in stored_blocks(
+        os.path.join(tmp, "store_lz4")) if raw >= (8 << 20) - (1 << 16)][:4]
+    if len(blocks) < 3:
+        raise AssertionError(f"decode: {len(blocks)} full blocks, 3 needed")
+    device_decode.decode_block_device(*blocks[0], device="cuda")   # warm-up
+    t = {"device": 0.0, "host": 0.0, "parse": 0.0, "resolve": 0.0}
+    rounds = []
+    n_raw = 0
+    for payload, raw in blocks:
+        t0 = time.perf_counter()
+        got = device_decode.decode_block_device(payload, raw, device="cuda")
+        t["device"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = lz4.decompress(payload, raw)
+        t["host"] += time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("device LZ4 decode differs from host decode")
+        t0 = time.perf_counter()
+        seq = device_decode.parse_sequences(payload, raw)
+        t["parse"] += time.perf_counter() - t0
+        args = [torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+                .cuda()] + [torch.from_numpy(a).cuda() for a in seq]
+        fn = device_decode.make_resolve_fn(raw, len(seq[0]))
+        ms = cuda_ms(lambda: rounds.append(fn(*args)[1]), 1, warmup=False)
+        t["resolve"] += ms / 1e3
+        n_raw += raw
+    k = len(blocks)
+    log(f"device decode: {k} blocks of {n_raw // k} bytes byte-equal to host"
+        f" decode; per block: device {t['device'] / k * 1e3:.3f} ms "
+        f"({n_raw / t['device'] / 1e9:.3f} GB/s; host parse "
+        f"{t['parse'] / k * 1e3:.3f} ms, resolve {t['resolve'] / k * 1e3:.3f}"
+        f" ms by events, {rounds} rounds), host decode "
+        f"{t['host'] / k * 1e3:.3f} ms ({n_raw / t['host'] / 1e9:.3f} GB/s)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gib", type=float, default=1.0,
@@ -942,6 +1303,7 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels phase")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1024,10 +1386,10 @@ def main() -> int:
         src = trees["src"][0]
         fs = FSStorage()
         launches = {}
+        walls = {}
         for name, (extra, need, tree) in paths.items():
             tree_dir, total = trees[tree]
-            for w in wrappers.values():
-                w.LAUNCHES = 0
+            reset(wrappers)
             stage1.repair_lane.REPAIRS = 0
             counted_plan_hash.BATCHES = 0
             t0 = time.perf_counter()
@@ -1048,10 +1410,9 @@ def main() -> int:
                 f"repaired {stage1.repair_lane.REPAIRS}; blocks {summary}")
             if rc != 0:
                 raise AssertionError(f"upsync {name} exited {rc}")
+            walls[name] = wall
+            require_launches(name, counts, need)
             for k in need:
-                if counts[k] <= 0:
-                    raise AssertionError(f"the {name} path never launched "
-                                         f"{k}")
                 launches.setdefault(k, counts[k])
             hash_kind = "blake2" if "blake2" in need else "blake3"
             if counts[hash_kind] != batches:
@@ -1067,7 +1428,6 @@ def main() -> int:
                 raise AssertionError(
                     f"the {name} path launched hufpack {counts['hufpack']} "
                     f"times for {summary['device_route']} frames")
-        pipeline.DevicePartIndexer.plan_hash = plan_hash
         for r in rows:                      # pack: 0, checked on each path
             r["launches"] = launches.get(r["name"], 0)
 
@@ -1128,12 +1488,25 @@ def main() -> int:
 
         # 6. stage 4
         stage4(src, 4, wrappers)
+
+        # 7-12. the mesh, the distributed steps, two processes, pack,
+        # a stale target, device decode
+        mesh_phase(src, trees["src"][1], tmp, walls["lz4"], wrappers,
+                   counted_plan_hash)
+        distributed_phase(src, wrappers)
+        pipeline.DevicePartIndexer.plan_hash = plan_hash
+        multihost_phase(src, tmp)
+        _, la, unpacked = pack_phase(trees["src_b2"][0], tmp, wrappers)
+        stale_phase(trees["src_b2"][0], la, unpacked, wrappers)
+        decode_phase(tmp)
     finally:
+        pipeline.DevicePartIndexer.plan_hash = plan_hash
         shutil.rmtree(tmp, ignore_errors=True)
 
     if any(m == "jax" or m.startswith(("jax.", "longtail_tpu."))
            or m == "longtail_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,15 @@ commands (UpSync cmd/main.c:940, DownSync :1236, ValidateVersionIndex
 
 ``upsync`` runs the chunk+hash data plane on ``device``: the CUDA card by
 default (raising where there is none), "cpu" for the kernels' plain
-versions, None for the host path.  The block store decides where blocks
+versions, None for the host path; ``mesh``, a sequence of devices, deals
+it over one indexer per device.  The block store decides where blocks
 are compressed (``stores/compressblockstore.py`` runs its codecs' match
-search on its own device).  ``downsync`` and ``validate_version`` run on
-the host, as the JAX package runs them without a device; a downsync
+search on its own device).  ``downsync`` re-indexes a stale target on its
+``device`` (the card by default, None for the host path) and decodes on
+the host; a downsync into a fresh folder touches no device.  A downsync
 defaults ``min_block_usage_percent`` to 0, as the reference C does (the
 JAX package's default of 80 crashes an incremental downsync).
+``validate_version`` runs on the host.
 """
 
 from __future__ import annotations
@@ -44,9 +47,12 @@ def upsync(source_storage: Storage, source_root: str, block_store,
            min_block_usage_percent: int = 0,
            hash_identifier: int = C.HASH_TYPE_BLAKE3,
            compression_tag: int = C.COMPRESSION_TYPE_LZ4_DEFAULT,
-           workers: int = 8, path_filter=None, device="cuda",
+           workers: int = 8, path_filter=None, device="cuda", mesh=None,
            progress=null_progress) -> tuple[VersionIndex, StoreIndex]:
     """Index a folder and upload its missing blocks.
+
+    ``mesh``: torch devices (or their names) to deal the BLAKE3 chunk+hash
+    data plane over, one indexer each; global dedup stays on the host.
 
     Returns (version_index, version_store_index): the manifest plus a store
     index covering exactly this version's chunks (existing + newly written),
@@ -61,7 +67,7 @@ def upsync(source_storage: Storage, source_root: str, block_store,
         version_index = create_version_index(
             source_storage, source_root, file_infos, hash_identifier,
             target_chunk_size, asset_tags=asset_tags, workers=workers,
-            device=device, progress=progress)
+            device=device, mesh=mesh, progress=progress)
 
     existing = block_store.get_existing_content(
         version_index.chunk_hashes, min_block_usage_percent)
@@ -80,17 +86,18 @@ def downsync(block_store, target_storage: Storage, target_root: str,
              current_version_index: VersionIndex | None = None,
              retain_permissions: bool = True, scan_target: bool = True,
              min_block_usage_percent: int = 0,
-             workers: int = 8, cancel_token=None,
+             workers: int = 8, cancel_token=None, device="cuda",
              progress=null_progress) -> None:
     """Materialize source_version_index at target_root, fetching only
-    missing blocks (DownSync, cmd/main.c:1236)."""
+    missing blocks (DownSync, cmd/main.c:1236).  An existing target is
+    re-indexed on ``device`` (None: the host path)."""
     if current_version_index is None and scan_target and \
             target_storage.is_dir(target_root):
         current_version_index = create_version_index(
             target_storage, target_root,
             hash_identifier=source_version_index.hash_identifier,
             target_chunk_size=source_version_index.target_chunk_size,
-            workers=workers, device=None)
+            workers=workers, device=device)
 
     if current_version_index is not None:
         diff = create_version_diff(current_version_index, source_version_index)

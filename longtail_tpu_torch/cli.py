@@ -4,16 +4,18 @@ names and defaults (:2956-3105) — the port of ``longtail_tpu/cli.py``.
 
 Usage: python -m longtail_tpu_torch.cli <command> [flags]
 
-``upsync`` runs on the CUDA card by default what the JAX package's
-``--device`` runs on its accelerator: the chunk+hash data plane (BLAKE3
-or BLAKE2) and the match search of the LZ4 and zstd block codecs, with
-zstd's Huffman literal pack; it raises where there is no card.
+``upsync`` and ``pack`` run on the CUDA card by default what the JAX
+package's ``--device`` runs on its accelerator: the chunk+hash data plane
+(BLAKE3 or BLAKE2; meow always chunks and hashes on the host, as in the
+JAX package) and the match search of the LZ4 and zstd block codecs, with
+zstd's Huffman literal pack; they raise where there is no card.
 ``--device`` takes an optional value: ``cuda`` (the default, bare or
 absent), ``cpu`` (the kernels' plain versions on the CPU) or ``host``
-(the host path, the JAX package's default).  The other commands run on
-the host; ``--device`` other than ``host`` on them, and ``--hash-algorithm
-meow`` with a device, raise "not ported yet".  A downsync defaults
-``--min-block-usage-percent`` to 0, as the reference C does.
+(the host path, the JAX package's default).  The other commands have no
+``--device``, as in the JAX CLI; ``downsync`` and ``unpack`` re-index an
+existing target on the card (``api.downsync``) and decode on the host.
+A downsync defaults ``--min-block-usage-percent`` to 0, as the reference
+C does.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import time
 import torch
 
 from longtail_tpu_torch import api
-from longtail_tpu_torch.core.indexing import DEVICE_HASH_KINDS
 from longtail_tpu_torch.formats import constants as C
 from longtail_tpu_torch.formats.version_index import VersionIndex
 from longtail_tpu_torch.ops.compression_registry import supported_tags
@@ -80,16 +81,15 @@ def _open_store(storage_uri: str, compression_needed: bool = True):
     return CompressBlockStore(store) if compression_needed else store
 
 
-def cmd_upsync(args) -> int:
+def _device(args):
+    """The torch device that --device names (the card when absent), None
+    for the host path."""
     name = DEVICE_NAMES[args.device or "cuda"]
-    device = None if name is None else torch.device(name)
-    if device is not None and \
-            HASH_NAMES[args.hash_algorithm] not in DEVICE_HASH_KINDS:
-        raise NotImplementedError(
-            f"upsync on a device with --hash-algorithm {args.hash_algorithm} "
-            f"is not ported yet (only "
-            f"{' and '.join(sorted(DEVICE_HASH_KINDS.values()))} are; "
-            "--device host runs it on the host path)")
+    return None if name is None else torch.device(name)
+
+
+def cmd_upsync(args) -> int:
+    device = _device(args)
     storage = FSStorage()
     store = CompressBlockStore(FSBlockStore(storage, args.storage_uri),
                                device=device)
@@ -188,7 +188,8 @@ def cmd_pack(args) -> int:
         max_chunks_per_block=args.max_chunks_per_block,
         hash_identifier=HASH_NAMES[args.hash_algorithm],
         compression_tag=COMPRESSION_NAMES[args.compression_algorithm],
-        workers=args.workers, progress=_progress("pack"))
+        workers=args.workers, device=_device(args),
+        progress=_progress("pack"))
     print(f"pack: {n_assets} assets in {n_blocks} blocks -> "
           f"{args.target_path} ({size} bytes)")
     return 0
@@ -230,10 +231,10 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=sorted(COMPRESSION_NAMES))
         sp.add_argument("--device", nargs="?", const="cuda", default=None,
                         choices=sorted(DEVICE_NAMES),
-                        help="where upsync runs the chunk+hash data plane "
-                             "and the block codecs: cuda (the default, "
-                             "bare or absent), cpu (the kernels' plain "
-                             "versions) or host (the host path)")
+                        help="where the chunk+hash data plane and the "
+                             "block codecs run: cuda (the default, bare or "
+                             "absent), cpu (the kernels' plain versions) "
+                             "or host (the host path)")
 
     sp = sub.add_parser("upsync", help="index a folder and upload new blocks")
     sp.add_argument("--storage-uri", required=True)
@@ -296,11 +297,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.command != "upsync" and \
-            getattr(args, "device", None) not in (None, "host"):
-        raise NotImplementedError(
-            f"{args.command} --device {args.device} is not ported yet "
-            "(only upsync runs on a device)")
     try:
         log.set_level(args.log_level)
     except ValueError as e:

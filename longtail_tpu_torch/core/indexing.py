@@ -18,7 +18,11 @@ src/longtail.c:1656, ``ChunkAssets`` :2343, ``Longtail_CreateVersionIndex``
 ``device`` takes the place of the JAX package's ``xp=jnp``: the CUDA card
 by default (raising where there is none), "cpu" for the kernels' plain
 versions, None for the host path (native chunker and hasher, the JAX
-package's ``xp=np``).  The device data plane runs BLAKE3 and BLAKE2.
+package's ``xp=np``).  The device data plane runs BLAKE3 and BLAKE2;
+meow runs on the host path on any device, as in the JAX package.
+``mesh`` (a sequence of torch devices or their names, in place of a
+``jax.sharding.Mesh``) deals the BLAKE3 data plane over one indexer per
+device (``parallel/pipeline.py`` ``MeshPartIndexer``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from longtail_tpu_torch.ops import cdc
 from longtail_tpu_torch.ops.hash_registry import get_hasher
 from longtail_tpu_torch.parallel.pipeline import (
     DevicePartIndexer,
+    MeshPartIndexer,
     resolve_device,
 )
 from longtail_tpu_torch.stores.storage import Storage, walk_files
@@ -257,21 +262,71 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
     return results
 
 
+def _chunk_assets_mesh(storage, root: str, file_infos: FileInfos,
+                       target_chunk_size: int, mesh,
+                       progress=null_progress) -> list:
+    """The BLAKE3 data plane over the devices of ``mesh``: one indexer per
+    device, batches dealt round-robin (``MeshPartIndexer``).  Every file
+    goes through the devices, small ones too, its parts keyed by (asset,
+    position); per-part results return in submission order and global
+    dedup is the host unique of create_version_index, as in
+    ``longtail_tpu/core/indexing.py:253``.  Returns per-asset (hashes
+    u64, sizes u32)."""
+    indexer = MeshPartIndexer(target_chunk_size,
+                              [resolve_device(d) for d in mesh])
+    P = indexer.part_bytes
+    count = file_infos.count
+    results = [
+        (np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.uint32))
+        for _ in range(count)
+    ]
+
+    def parts():
+        for i in range(count):
+            size = int(file_infos.sizes[i])
+            path = file_infos.paths[i]
+            full = f"{root}/{path}" if root else path
+            read = _part_reader(storage, full, size)
+            pos = 0
+            while pos < size:
+                n = min(P, size - pos)
+                yield (i, pos), read(pos, n)
+                pos += n
+
+    acc: dict[int, list] = {}
+    done = 0
+    for (i, pos), sizes, hashes in indexer.index_stream(parts()):
+        acc.setdefault(i, []).append((pos, hashes, sizes))
+        done += 1
+        progress(min(done, count), count)
+    for i, pieces in acc.items():
+        pieces.sort(key=lambda p: p[0])
+        results[i] = (np.concatenate([p[1] for p in pieces]),
+                      np.concatenate([p[2] for p in pieces]))
+    return results
+
+
 def chunk_assets(storage: Storage, root: str, file_infos: FileInfos,
                  hash_identifier: int, target_chunk_size: int,
                  asset_tags: np.ndarray | None = None,
                  workers: int | None = None, device="cuda",
-                 progress=null_progress) -> ChunkedAssets:
-    """Chunk and hash every asset: on ``device`` (the card by default,
-    "cpu" for the plain versions), or on the host path with None."""
+                 mesh=None, progress=null_progress) -> ChunkedAssets:
+    """Chunk and hash every asset: over the devices of ``mesh`` (BLAKE3
+    only, as in the JAX package), else on ``device`` (the card by
+    default, "cpu" for the plain versions), or on the host path with
+    None."""
     hasher = get_hasher(hash_identifier)
     count = file_infos.count
     if device is not None:
         device = resolve_device(device)
-        if hash_identifier not in DEVICE_HASH_KINDS:
-            raise NotImplementedError(
-                f"hash {hash_identifier:#x} on a device is not ported yet "
-                "(only blake3 and blake2 are)")
+    if mesh is not None and hash_identifier == HASH_TYPE_BLAKE3:
+        results = _chunk_assets_mesh(storage, root, file_infos,
+                                     target_chunk_size, mesh, progress)
+        return assemble_chunked_assets(results, file_infos, hasher,
+                                       asset_tags)
+    # the JAX package has no device meow (its hasher ignores xp), so meow
+    # runs on the host path whatever the device: there is no kernel to run
+    if device is not None and hash_identifier in DEVICE_HASH_KINDS:
         results = _chunk_assets_device(storage, root, file_infos,
                                        target_chunk_size, hash_identifier,
                                        device, progress, workers or 8)
@@ -356,10 +411,10 @@ def create_version_index(storage: Storage, root: str,
                          target_chunk_size: int = DEFAULT_TARGET_CHUNK_SIZE,
                          asset_tags: np.ndarray | None = None,
                          workers: int | None = None, device="cuda",
-                         path_filter=None,
+                         mesh=None, path_filter=None,
                          progress=null_progress) -> VersionIndex:
     """Longtail_CreateVersionIndex (src/longtail.c:2808) with the data
-    plane on ``device`` (see ``chunk_assets``)."""
+    plane on ``device`` or over ``mesh`` (see ``chunk_assets``)."""
     if hash_identifier is None:
         hash_identifier = HASH_TYPE_BLAKE3
     if device is not None:
@@ -369,7 +424,7 @@ def create_version_index(storage: Storage, root: str,
                                            workers=workers or 1)
     ca = chunk_assets(storage, root, file_infos, hash_identifier,
                       target_chunk_size, asset_tags, workers, device,
-                      progress)
+                      mesh, progress)
     return build_version_index_from_chunked(
         ca, file_infos, hash_identifier, target_chunk_size)
 

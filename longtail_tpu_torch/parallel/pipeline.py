@@ -25,8 +25,10 @@ way, so the host waits only where the JAX package does its two fetches
 per batch (``plan_hash`` and ``retire``): stage 1 of later batches and
 stage 3 of earlier ones stay queued on the card while the host plans.
 
-With ``device="cpu"`` every wrapper computes its plain version, which is
-how the tests hold the port against the JAX package.
+``MeshPartIndexer`` deals batches round-robin over one
+``DevicePartIndexer`` per device.  With ``device="cpu"`` every wrapper
+computes its plain version, which is how the tests hold the port against
+the JAX package.
 """
 
 from __future__ import annotations
@@ -112,18 +114,38 @@ class DevicePartIndexer:
     def __init__(self, target_chunk_size: int, device,
                  batch_bytes: int = 64 << 20, lanes: int | None = None,
                  hash_kind: str = "blake3", compress: bool = False):
+        device = resolve_device(device)
+        part_bytes = target_chunk_size * 1024
+        if lanes is None:
+            lanes = max(1, batch_bytes // part_bytes)
+            if device.type == "cpu":
+                # the plain versions gain nothing from wide batches, and
+                # their int64 intermediates are 8x the batch
+                lanes = min(lanes, 8)
+        self._setup(ChunkerConfig.from_target(target_chunk_size),
+                    part_bytes, lanes, device, hash_kind, compress)
+
+    @classmethod
+    def for_geometry(cls, cfg: ChunkerConfig, part_bytes: int, lanes: int,
+                     device, hash_kind: str = "blake3"):
+        """An indexer of an explicit chunking geometry and lane width
+        (part_bytes a multiple of stage1.SCAN_TILE): the single-step
+        ``device_chunker.index_parts``."""
+        self = cls.__new__(cls)
+        self._setup(cfg, part_bytes, lanes, resolve_device(device),
+                    hash_kind, False)
+        return self
+
+    def _setup(self, cfg: ChunkerConfig, part_bytes: int, lanes: int,
+               device: torch.device, hash_kind: str, compress: bool):
         if hash_kind not in HASH_KINDS:
             raise ValueError(f"no device hasher for {hash_kind!r}")
         self.hash_kind = hash_kind
         self.compress = compress
-        self.device = resolve_device(device)
-        self.cfg = ChunkerConfig.from_target(target_chunk_size)
-        self.part_bytes = target_chunk_size * 1024
-        self.lanes = lanes or max(1, batch_bytes // self.part_bytes)
-        if self.device.type == "cpu" and lanes is None:
-            # the plain versions gain nothing from wide batches, and their
-            # int64 intermediates are 8x the batch
-            self.lanes = min(self.lanes, 8)
+        self.device = device
+        self.cfg = cfg
+        self.part_bytes = part_bytes
+        self.lanes = lanes
         self.plan = Stage1Plan(self.cfg, self.lanes, self.part_bytes)
         # in-flight batches per stage: deep enough that each stage's one
         # host wait overlaps other batches' device work
@@ -324,3 +346,71 @@ class DevicePartIndexer:
             stage2q.append(self.plan_hash(stage1q.popleft()))
         while stage2q:
             yield from self.retire(stage2q.popleft())
+
+
+class MeshPartIndexer:
+    """The data plane over several devices: one DevicePartIndexer per
+    device, batches dealt round-robin, results retired in global
+    submission order (``longtail_tpu/parallel/pipeline.py:844``).
+
+    ``devices`` are torch devices or their names; one may appear more than
+    once, which puts two indexers on one card.  Every indexer runs the
+    same kernels as the single-device path.  An entry carries the events
+    of its own copies, recorded on its device's current stream, so an
+    indexer waits only for its own batches (and, on a shared card, for
+    the work queued before them on that stream).  Global dedup stays with
+    the caller: a host unique in ``create_version_index``, or the
+    all-gather of ``parallel/distributed.py`` across processes."""
+
+    def __init__(self, target_chunk_size: int, devices,
+                 batch_bytes_per_dev: int = 64 << 20,
+                 lanes: int | None = None, hash_kind: str = "blake3"):
+        devices = list(devices)
+        if not devices:
+            raise ValueError("MeshPartIndexer needs at least one device")
+        self.indexers = [
+            DevicePartIndexer(target_chunk_size, d,
+                              batch_bytes=batch_bytes_per_dev, lanes=lanes,
+                              hash_kind=hash_kind)
+            for d in devices
+        ]
+        self.part_bytes = self.indexers[0].part_bytes
+        self.cfg = self.indexers[0].cfg
+
+    def index_stream(self, tagged_parts: Iterable[Tuple[object, np.ndarray]],
+                     prefetch_depth: int | None = None,
+                     ) -> Iterator[Tuple[object, np.ndarray, np.ndarray]]:
+        """DevicePartIndexer.index_stream's contract, fanned out over
+        every indexer."""
+        n = len(self.indexers)
+        B = self.indexers[0].lanes
+        depth = prefetch_depth if prefetch_depth is not None else 2 * B * n
+        src = _prefetch(tagged_parts, depth) if depth else iter(tagged_parts)
+
+        stage1q: deque = deque()   # (indexer, entry), FIFO = global order
+        stage2q: deque = deque()
+        batch: list = []
+        bi = 0
+        d = self.indexers[0].queue_depth * n
+        for item in src:
+            batch.append(item)
+            if len(batch) == B:
+                ix = self.indexers[bi % n]
+                stage1q.append((ix, ix.submit_host(batch)))
+                bi += 1
+                batch = []
+                if len(stage1q) >= d:
+                    ix, e = stage1q.popleft()
+                    stage2q.append((ix, ix.plan_hash(e)))
+                if len(stage2q) >= d:
+                    ix, e = stage2q.popleft()
+                    yield from ix.retire(e)
+        if batch:
+            ix = self.indexers[bi % n]
+            stage1q.append((ix, ix.submit_host(batch)))
+        while stage1q:
+            ix, e = stage1q.popleft()
+            stage2q.append((ix, ix.plan_hash(e)))
+        while stage2q:
+            ix, e = stage2q.popleft()
+            yield from ix.retire(e)

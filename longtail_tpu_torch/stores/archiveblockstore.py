@@ -107,29 +107,34 @@ def pack_archive(storage: Storage, source_root: str, archive_path: str,
                  max_chunks_per_block: int = 1024,
                  hash_identifier: int | None = None,
                  compression_tag: int = 0,
-                 workers: int = 8,
+                 workers: int = 8, device="cuda",
                  progress=null_progress) -> tuple[int, int, int]:
     """CLI pack (cmd/main.c:2116): index source, build archive, write every
     block.  Returns (asset_count, block_count, archive_bytes).  The index
-    runs on the host path (a device pack is not ported yet)."""
+    and the block codecs run on ``device``: the card by default, "cpu"
+    for the plain versions, None for the host path and codecs."""
     from longtail_tpu_torch.core.indexing import create_version_index, \
         get_files_recursively
     from longtail_tpu_torch.core.write import write_content
     from longtail_tpu_torch.formats.constants import HASH_TYPE_BLAKE3
+    from longtail_tpu_torch.parallel.pipeline import resolve_device
 
+    if device is not None:
+        device = resolve_device(device)
     if hash_identifier is None:
         hash_identifier = HASH_TYPE_BLAKE3
     file_infos = get_files_recursively(storage, source_root)
     asset_tags = np.full(file_infos.count, compression_tag, dtype=np.uint32)
     vi = create_version_index(storage, source_root, file_infos,
                               hash_identifier, target_chunk_size,
-                              asset_tags=asset_tags, workers=workers, device=None,
-                              progress=progress)
+                              asset_tags=asset_tags, workers=workers,
+                              device=device, progress=progress)
     si = create_missing_content(StoreIndex.from_blocks([]), vi,
                                 target_block_size, max_chunks_per_block)
     archive = ArchiveIndex.create(si, vi)
     writer = ArchiveBlockStoreWriter(storage, archive_path, archive)
-    store = CompressBlockStore(writer) if compression_tag else writer
+    store = CompressBlockStore(writer, device=device) \
+        if compression_tag else writer
     write_content(storage, store, si, vi, source_root, workers=workers,
                   progress=progress)
     writer.close()
@@ -138,14 +143,16 @@ def pack_archive(storage: Storage, source_root: str, archive_path: str,
 
 def unpack_archive(storage: Storage, archive_path: str, target_root: str,
                    retain_permissions: bool = True, workers: int = 8,
-                   progress=null_progress) -> int:
+                   device="cuda", progress=null_progress) -> int:
     """CLI unpack (cmd/main.c:2396): read archive, diff against target,
-    reconstruct."""
+    reconstruct; an existing target is re-indexed on ``device``
+    (``api.downsync``)."""
     from longtail_tpu_torch import api
 
     reader = ArchiveBlockStoreReader(storage, archive_path)
     store = CompressBlockStore(reader)
     api.downsync(store, storage, target_root, reader.archive.version_index,
                  retain_permissions=retain_permissions, workers=workers,
-                 min_block_usage_percent=0, progress=progress)
+                 min_block_usage_percent=0, device=device,
+                 progress=progress)
     return reader.archive.version_index.asset_count

@@ -227,10 +227,21 @@ def test_blake2_version_index_bit_identical_to_jax():
 
 
 def test_device_hash_kinds():
-    """meow on a device is not ported yet; an unknown kind is refused."""
+    """meow with a device chunks and hashes on the host path, as the JAX
+    package's xp=jnp does (its meow hasher ignores xp): the index equals
+    the host path's and the JAX package's; the device indexer refuses
+    meow and unknown kinds."""
+    import jax.numpy as jnp
+
     st = _tree()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_version_index(st, "src", hash_identifier=C.HASH_TYPE_MEOW,
-                             target_chunk_size=TARGET, device="cpu")
-    with pytest.raises(ValueError):
-        pipeline.DevicePartIndexer(TARGET, "cpu", hash_kind="meow")
+    got = create_version_index(st, "src", hash_identifier=C.HASH_TYPE_MEOW,
+                               target_chunk_size=TARGET, device="cpu")
+    assert got.to_bytes() == create_version_index(
+        st, "src", hash_identifier=C.HASH_TYPE_MEOW,
+        target_chunk_size=TARGET, device=None).to_bytes()
+    assert got.to_bytes() == j_create_version_index(
+        st, "src", hash_identifier=C.HASH_TYPE_MEOW,
+        target_chunk_size=TARGET, xp=jnp).to_bytes()
+    for kind in ("meow", "sha1"):
+        with pytest.raises(ValueError):
+            pipeline.DevicePartIndexer(TARGET, "cpu", hash_kind=kind)

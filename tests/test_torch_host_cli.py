@@ -97,7 +97,7 @@ def test_two_version_upsync_downsync_validate_equal_the_jax_packages(
     out = str(tmp_path / "out")
     for src in (v1, v2):                    # v2 lands over v1: incremental
         vi = VersionIndex.from_bytes(fs.read(f"{src}.lvi"))
-        api.downsync(store, fs, out, vi, workers=2)
+        api.downsync(store, fs, out, vi, workers=2, device=None)
         assert _files(out) == _files(src)
         jout = str(tmp_path / f"jout_{os.path.basename(src)}")
         japi.downsync(JCompressBlockStore(JFSBlockStore(jfs, theirs)), jfs,
@@ -155,7 +155,7 @@ def cli_runs(tmp_path_factory):
         for name, argv in _commands(base):
             # one worker: blocks reach the store (and its index) in order
             argv = ["--workers", "1"] + argv + \
-                (extra if name == "upsync" else [])
+                (extra if name in ("upsync", "pack") else [])
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = main(argv)

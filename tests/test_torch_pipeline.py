@@ -41,6 +41,15 @@ from longtail_tpu_torch.parallel import pipeline  # noqa: E402
 from longtail_tpu_torch.parallel.device_chunker import (  # noqa: E402
     ChunkerConfig,
 )
+from longtail_tpu_torch.stores.compressblockstore import (  # noqa: E402
+    CompressBlockStore as TCompressBlockStore,
+)
+from longtail_tpu_torch.stores.fsblockstore import (  # noqa: E402
+    FSBlockStore as TFSBlockStore,
+)
+from longtail_tpu_torch.stores.storage import (  # noqa: E402
+    FSStorage as TFSStorage,
+)
 
 torch.set_num_threads(1)
 
@@ -271,27 +280,218 @@ def test_cli_upsync_host_path_writes_the_hosts_index(tmp_path):
 
 @pytest.mark.parametrize("argv,exc", [
     (["pack", "--source-path", "a", "--target-path", "b.la", "--device"],
-     NotImplementedError),
+     RuntimeError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
       "--target-path", "b.lvi", "--device", "--hash-algorithm", "meow"],
-     NotImplementedError),
+     RuntimeError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
       "--target-path", "b.lvi", "--device"], RuntimeError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
       "--target-path", "b.lvi"], RuntimeError),
     (["upsync", "--storage-uri", "s", "--source-path", "a",
       "--target-path", "b.lvi", "--hash-algorithm", "meow"],
-     NotImplementedError),
+     RuntimeError),
     (["downsync", "--storage-uri", "s", "--source-path", "a.lvi",
       "--target-path", "b", "--device"], SystemExit),
-    (["pack", "--source-path", "a", "--target-path", "b.la", "--device",
-      "cpu"], NotImplementedError),
 ])
 def test_cli_device_outside_the_port_raises(tmp_path, monkeypatch, argv, exc):
+    """The card is the default of upsync and pack, meow included (its
+    block codecs run there): without a card they raise before any work;
+    downsync has no --device, as in the JAX CLI."""
     monkeypatch.chdir(tmp_path)
     os.makedirs("a")
     with pytest.raises(exc):
         cli.main(argv)
+    assert not os.path.exists("b.la") and not os.path.exists("b.lvi")
+
+
+def _write_prose_tree(root, seed=31):
+    """Compressible files (words from a small vocabulary, one with a zero
+    run) large enough for the device codec route, and a small file."""
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(rng.integers(97, 123, rng.integers(2, 9), np.uint8))
+             for _ in range(300)]
+    for k, (rel, n) in enumerate((("a/one.txt", 700_000),
+                                  ("a/b/two.txt", 300_000),
+                                  ("small.txt", 5000))):
+        data = b" ".join(vocab[i] for i in rng.integers(0, 300, n // 3))
+        if k == 0:
+            data = data[:200_000] + bytes(30_000) + data[200_000:]
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data[:n])
+
+
+def _tree(root) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            out[os.path.relpath(p, root)] = open(p, "rb").read()
+    return out
+
+
+def _jax_device_codecs(monkeypatch, on: bool):
+    """The JAX package's device codec switches, set for this test only
+    (its cli._xp would leave them set for later tests)."""
+    from longtail_tpu.ops.compression_registry import Lz4Codec, ZstdCodec
+
+    monkeypatch.setattr(Lz4Codec, "use_device", on)
+    monkeypatch.setattr(ZstdCodec, "use_device", on)
+
+
+@pytest.mark.parametrize("codec", ["zstd", "lz4"])
+def test_cli_meow_upsync_writes_the_jax_packages_device_upsync(
+        tmp_path, monkeypatch, codec):
+    """upsync --device cpu --hash-algorithm meow: chunk+hash on the host
+    path, blocks through the device codecs' plain versions; the .lvi and
+    every block file equal the JAX package's upsync --device --hash-
+    algorithm meow on the CPU (xp=jnp with its device codecs)."""
+    import jax.numpy as jnp
+
+    from longtail_tpu.formats import constants as JC
+
+    src = str(tmp_path / "src")
+    _write_prose_tree(src)
+    lvi = str(tmp_path / "v.lvi")
+    rc = cli.main(["upsync", "--storage-uri", str(tmp_path / "port"),
+                   "--source-path", src, "--target-path", lvi,
+                   "--target-chunk-size", str(TARGET), "--target-block-size",
+                   str(256 << 10), "--hash-algorithm", "meow",
+                   "--compression-algorithm", codec, "--device", "cpu"])
+    assert rc == 0
+    _jax_device_codecs(monkeypatch, True)
+    tag = {"zstd": JC.COMPRESSION_TYPE_ZSTD_DEFAULT,
+           "lz4": JC.COMPRESSION_TYPE_LZ4_DEFAULT}[codec]
+    fs = FSStorage()
+    jvi, _ = japi.upsync(
+        fs, src, CompressBlockStore(FSBlockStore(fs, str(tmp_path / "jax"))),
+        target_chunk_size=TARGET, target_block_size=256 << 10,
+        hash_identifier=JC.HASH_TYPE_MEOW, compression_tag=tag, xp=jnp)
+    assert open(lvi, "rb").read() == jvi.to_bytes()
+    got, want = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
+    blocks = [p for p in want if p.endswith(".lrb")]
+    assert len(blocks) >= 3 and sorted(got) == sorted(want)
+    for p in blocks:
+        assert got[p] == want[p], p
+    # the device codecs ran: the host codecs write other bytes
+    _jax_device_codecs(monkeypatch, False)
+    japi.upsync(fs, src, CompressBlockStore(FSBlockStore(
+        fs, str(tmp_path / "host"))), target_chunk_size=TARGET,
+        target_block_size=256 << 10, hash_identifier=JC.HASH_TYPE_MEOW,
+        compression_tag=tag)
+    host = _tree(tmp_path / "host")
+    assert any(host[p] != want[p] for p in blocks)
+
+
+def test_cli_pack_device_cpu_writes_the_jax_packages_archive(
+        tmp_path, monkeypatch):
+    """pack --device cpu (zstd, the default) writes the .la of the JAX
+    package's pack_archive(xp=jnp) with its device codecs byte for byte
+    (one worker: blocks land in the archive in order), and unpack
+    rebuilds the tree."""
+    import jax.numpy as jnp
+
+    from longtail_tpu.formats import constants as JC
+    from longtail_tpu.stores.archiveblockstore import (
+        pack_archive as j_pack_archive,
+    )
+
+    src = str(tmp_path / "src")
+    _write_prose_tree(src)
+    la = str(tmp_path / "a.la")
+    rc = cli.main(["--workers", "1", "pack", "--source-path", src,
+                   "--target-path", la, "--target-chunk-size", str(TARGET),
+                   "--target-block-size", str(256 << 10), "--device", "cpu"])
+    assert rc == 0
+    _jax_device_codecs(monkeypatch, True)
+    jla = str(tmp_path / "j.la")
+    j_pack_archive(FSStorage(), src, jla, target_chunk_size=TARGET,
+                   target_block_size=256 << 10,
+                   compression_tag=JC.COMPRESSION_TYPE_ZSTD_DEFAULT,
+                   workers=1, xp=jnp)
+    assert open(la, "rb").read() == open(jla, "rb").read()
+    _jax_device_codecs(monkeypatch, False)
+    hla = str(tmp_path / "h.la")
+    j_pack_archive(FSStorage(), src, hla, target_chunk_size=TARGET,
+                   target_block_size=256 << 10,
+                   compression_tag=JC.COMPRESSION_TYPE_ZSTD_DEFAULT,
+                   workers=1)
+    assert open(hla, "rb").read() != open(jla, "rb").read()
+    out = str(tmp_path / "out")
+    assert cli.main(["unpack", "--source-path", la, "--target-path",
+                     out]) == 0
+    assert _tree(out) == _tree(src)
+
+
+def test_downsync_over_a_stale_target_scans_it_on_the_device(
+        tmp_path, monkeypatch):
+    """api.downsync over a stale target (one file edited, one removed)
+    re-indexes it on its device: with device="cpu" the target's index
+    equals device=None's and the JAX package's xp=jnp scan, and each
+    downsync rebuilds the source."""
+    import jax.numpy as jnp
+
+    from longtail_tpu import api as japi_mod
+
+    fs, jfs = TFSStorage(), FSStorage()
+    src = str(tmp_path / "src")
+    _write_tree(fs, src, seed=4)
+    store_dir = str(tmp_path / "store")
+    vi, _ = api.upsync(fs, src, TCompressBlockStore(TFSBlockStore(
+        fs, store_dir)), target_chunk_size=TARGET, device=None)
+
+    def stale(name):
+        target = str(tmp_path / name)
+        _write_tree(fs, target, seed=4)
+        data = bytearray(open(os.path.join(target, "big.bin"), "rb").read())
+        data[1000:1006] = b"edited"
+        open(os.path.join(target, "big.bin"), "wb").write(bytes(data))
+        os.remove(os.path.join(target, "tiny"))
+        return target
+
+    scans = {}
+
+    def capture(mod, key):
+        real = mod.create_version_index
+
+        def scan(*a, **kw):
+            index = real(*a, **kw)
+            scans[key] = (kw.get("device", kw.get("xp")), index.to_bytes())
+            return index
+        monkeypatch.setattr(mod, "create_version_index", scan)
+
+    capture(api, "port")
+    for device in ("cpu", None):
+        target = stale(f"t_{device}")
+        api.downsync(TCompressBlockStore(TFSBlockStore(fs, store_dir)), fs,
+                     target, vi, workers=2, device=device)
+        assert _tree(target) == _tree(src)
+        assert scans["port"][0] == device
+        scans[device] = scans.pop("port")[1]
+    capture(japi_mod, "jax")
+    target = stale("t_jax")
+    japi.downsync(CompressBlockStore(FSBlockStore(jfs, store_dir)), jfs,
+                  target, VersionIndex.from_bytes(vi.to_bytes()), workers=2,
+                  min_block_usage_percent=0, xp=jnp)
+    assert _tree(target) == _tree(src)
+    assert scans["cpu"] == scans[None] == scans["jax"][1]
+
+
+def test_downsync_into_a_fresh_folder_touches_no_device(tmp_path):
+    """A downsync into a folder that does not exist needs no card: the
+    default device is resolved only when a target is scanned."""
+    fs = TFSStorage()
+    src = str(tmp_path / "src")
+    _write_tree(fs, src, seed=9)
+    store = TCompressBlockStore(TFSBlockStore(fs, str(tmp_path / "store")))
+    vi, _ = api.upsync(fs, src, store, target_chunk_size=TARGET, device=None)
+    out = str(tmp_path / "out")
+    api.downsync(store, fs, out, vi, workers=2)
+    assert _tree(out) == _tree(src)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.downsync(store, fs, out, vi, workers=2)
 
 
 def test_cuda_without_a_card_raises(tmp_path):
