@@ -72,11 +72,20 @@ line):
    one file changed, device="cuda", scans the target on the card and
    reproduces the tree;
 12. device decode: decode_block_device on full 8 MiB LZ4 blocks of phase
-   4's store, byte-equal to host decode; ms per block and GB/s of both.
+   4's store, byte-equal to host decode; ms per block and GB/s of both;
+13. bench: the nine modes of bench_torch.py (the port's bench.py) called
+   in-process on the card at small sizes, ``real`` over phase 4's tree;
+   each returns exactly bench.py's keys for its mode plus ``device``,
+   ``verified: true`` where bench.py has that key and a value above 0,
+   and prints its JSON line.
 
-Phases 7-11 each set every launch count to 0 before the path and read
-them after (phase 9's from its workers' last lines): scan, walk and
-BLAKE3 must launch on each, the Huffman pack on the zstd pack.
+Phases 7-11 and each mode of phase 13 set every launch count to 0 before
+the path and read them after (phase 9's from its workers' last lines):
+scan, walk and BLAKE3 must launch on each of phases 7-11, the Huffman
+pack on the zstd pack; in phase 13 the kernels of each mode's path
+(scan, walk, BLAKE3 for the data plane, the mesh, real and downsync, the
+Huffman pack for chunk_hash_compress's zstd context, device_entropy, real
+and downsync), pack and BLAKE2 never.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
@@ -1293,6 +1302,110 @@ def decode_phase(tmp: str) -> None:
         f"{t['host'] / k * 1e3:.3f} ms ({n_raw / t['host'] / 1e9:.3f} GB/s)")
 
 
+def bench_phase(src: str, wrappers: dict) -> dict:
+    """Phase 13: bench_torch.py's nine modes in-process on the card at
+    small sizes (the data plane and the mesh over 0.5 GiB, device_compress
+    one 64 MiB batch, device_decode and device_entropy at bench.py's
+    least sizes, compress and downsync 0.25 GiB, real over the tree
+    at src), each with every launch count set to 0 before it and read
+    after it.  Each mode must return exactly bench.py's keys for it plus
+    device, verified where bench.py verifies, a value above 0, and a
+    launch of each kernel of its path (downsync's CLI child launches in
+    its own process: its upsync runs here); pack and BLAKE2 never.
+    Prints each mode's JSON line.  Returns the counts by mode."""
+    import bench_torch as bt
+
+    from longtail_tpu_torch.ops import zstd, zstd_device
+
+    gib, tcs = 1 << 30, 32768
+    base = {"metric", "value", "unit", "vs_baseline"}
+    zstd_ctx = {"zstd_device_ratio", "zstd_level3_ratio"} \
+        if zstd_device._zstd_api() is not None else set()
+    l3 = {"zstd_level3_ratio"} if zstd._load_native() is not None else set()
+    data = ("scan", "walk", "blake3")
+    modes = {  # mode: (call, bench.py's keys beyond base, kernels)
+        "chunk_hash_compress": (
+            lambda: bt.bench_data_plane(gib // 2, tcs, True, "cuda"),
+            {"compress_ratio", "chunk_hash_gbps", "verified"} | zstd_ctx,
+            data + ("hufpack",)),
+        "chunk_hash": (
+            lambda: bt.bench_data_plane(gib // 2, tcs, False, "cuda"),
+            {"verified"}, data),
+        "mesh_chunk_hash": (
+            lambda: bt.bench_mesh_chunk_hash(gib // 2, tcs, "cuda"),
+            {"n_devices"}, data),
+        "device_compress": (
+            lambda: bt.bench_device_compress(64 << 20, "cuda"),
+            {"compress_ratio", "host_greedy_ratio",
+             "assembly_gbps_per_core"}, ()),
+        "device_decode": (
+            lambda: bt.bench_device_decode(0, "cuda"),
+            {"host_decode_gbps_per_core", "note"}, ()),
+        "device_entropy": (
+            lambda: bt.bench_device_entropy(0, "cuda"),
+            {"section_ratio", "device_zstd_ratio"} | l3, ("hufpack",)),
+        "compress": (lambda: bt.bench_compress(gib // 4, "cuda"), set(), ()),
+        "real": (
+            lambda: bt.bench_real_data(0, src, "cuda"),
+            {"compress_ratio", "chunk_dedup_ratio", "raw_gb", "path"},
+            data + ("hufpack",)),
+        "downsync": (
+            lambda: bt.bench_downsync(gib // 4, "cuda"),
+            {"peak_rss_gib", "upsync_gbps", "compress_ratio"},
+            data + ("hufpack",)),
+    }
+    if set(modes) != set(bt.MODES):
+        raise AssertionError("phase 13 misses a mode of bench_torch.py")
+    info = bt.device_info("cuda")
+    out = {}
+    for mode, (call, keys, need) in modes.items():
+        reset(wrappers)
+        t0 = time.perf_counter()
+        result = call()
+        wall = time.perf_counter() - t0
+        counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+        result["device"] = info
+        print(json.dumps(result), flush=True)
+        log(f"bench {mode}: {wall:.1f} s; launches {counts}")
+        if set(result) != base | keys | {"device"}:
+            raise AssertionError(f"bench {mode}: keys {sorted(result)}")
+        if result.get("verified", True) is not True:
+            raise AssertionError(f"bench {mode}: not verified")
+        if not result["value"] > 0:
+            raise AssertionError(f"bench {mode}: value {result['value']}")
+        require_launches(f"bench {mode}", counts, need)
+        if counts["pack"] or counts["blake2"]:
+            raise AssertionError(f"bench {mode} launched pack or BLAKE2")
+        out[mode] = counts
+
+    # the Huffman pack at device_entropy's shape, rows longer than one
+    # kernel stream: the interface against its plain version, the
+    # kernel's device time, the interface's by events, the bound
+    import torch
+
+    from longtail_tpu_torch.ops import entropy_kernel
+
+    S, n_pad = bt.ENTROPY_STREAMS, bt.ENTROPY_STREAM_BYTES
+    lits, table = bt.literal_rows(bt.literal_stream(), S, n_pad)
+    args = [torch.from_numpy(lits).cuda(),
+            torch.full((S,), n_pad, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(table).cuda()]
+    got = entropy_kernel.hufpack(*args)
+    err = max_abs_err(got, entropy_kernel.hufpack_plain(*args))
+    if err:
+        raise AssertionError(f"hufpack at {S} x {n_pad}: max_abs_err {err}")
+    bnd = bound(nbytes(*args, *got), 0)
+    dev_ms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
+                       "hufpack_kernel")
+    ms = cuda_ms(lambda: entropy_kernel.hufpack(*args), 20)
+    plain_ms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*args), 3)
+    log(f"hufpack at device_entropy's {S} x {n_pad >> 10} KiB: max_abs_err "
+        f"{err}; kernel {dev_ms:.4f} ms of device time, the (S, n_pad) "
+        f"interface {ms:.4f} ms by events, plain {plain_ms:.4f} ms; bound "
+        f"{bnd[0]:.6f} ms by {bnd[1]}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gib", type=float, default=1.0,
@@ -1499,6 +1612,11 @@ def main() -> int:
         _, la, unpacked = pack_phase(trees["src_b2"][0], tmp, wrappers)
         stale_phase(trees["src_b2"][0], la, unpacked, wrappers)
         decode_phase(tmp)
+
+        # 13. bench_torch.py's nine modes
+        t0 = time.perf_counter()
+        bench_phase(src, wrappers)
+        log(f"bench phase: {time.perf_counter() - t0:.1f} s")
     finally:
         pipeline.DevicePartIndexer.plan_hash = plan_hash
         shutil.rmtree(tmp, ignore_errors=True)

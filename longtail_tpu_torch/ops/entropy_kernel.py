@@ -172,28 +172,48 @@ hufpack_frame.LAUNCHES = 0
 
 
 def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
-    """Kernel wrapper; same contract as hufpack_plain.  The frame kernel
-    on the rows, row s a stream at s * n_pad of min(n_lit[s], n_pad)
-    literals, its words at s * W (no read of n_lit on the host)."""
-    if lits.device.type == "cpu":
-        return hufpack_plain(lits, n_lit, table)
+    """The (S, n_pad) interface through hufpack_frame (the kernel on a
+    CUDA tensor, its plain version on a CPU one); same contract as
+    hufpack_plain, for any n_pad that is a multiple of LIT_ALIGN.
+
+    Each row is cut into pieces of at most MAX_STREAM_LITS literals (the
+    longest stream the kernel takes), all packed in one call with no
+    read of n_lit on the host.  The stream is backward, so piece m of a
+    row lands at the bit total of the pieces after it: its words are
+    shifted there and added, which equals their OR (the bits are
+    disjoint)."""
     S, n_pad = lits.shape
-    if n_pad > MAX_STREAM_LITS or n_pad % LIT_ALIGN:
-        raise ValueError(f"rows of {n_pad} literals: the kernel takes "
-                         f"multiples of {LIT_ALIGN} up to {MAX_STREAM_LITS}")
-    _kernels.require("lits", lits, torch.uint8)
-    _kernels.require("n_lit", n_lit, torch.int32, (S,), lits.device)
-    _kernels.require("table", table, torch.int32, (256,), lits.device)
-    W = words_per_stream(n_pad)
-    row = torch.arange(S, dtype=torch.int32, device=lits.device)
-    n = n_lit.clamp(0, n_pad)
-    streams = torch.stack([row * n_pad, n, torch.zeros_like(row), row * W],
+    if n_pad % LIT_ALIGN:
+        raise ValueError(f"rows of {n_pad} literals: a multiple of "
+                         f"{LIT_ALIGN} is needed")
+    dev = lits.device
+    L = min(n_pad, MAX_STREAM_LITS)
+    M = -(-n_pad // L)                      # pieces a row
+    Wp, W = words_per_stream(L), words_per_stream(n_pad)
+    piece = torch.arange(S * M, dtype=torch.int32, device=dev)
+    first = (piece % M) * L                 # the piece's first literal
+    n = (n_lit.to(device=dev, dtype=torch.int32).clamp(0, n_pad)
+         .repeat_interleave(M) - first).clamp(0, L)
+    streams = torch.stack([(piece // M) * n_pad + first, n,
+                           torch.zeros_like(piece), piece * Wp],
                           dim=1).contiguous()
-    words, totals = hufpack_frame(lits.view(-1), streams, table.view(1, 256),
-                                  S * W)
-    words = words.view(S, W)
-    # the kernel writes words_per_stream(n) words a row; the rest are 0
-    col = torch.arange(W, dtype=torch.int32, device=lits.device)
-    words.masked_fill_(col[None, :] >= ((n * MAX_HUF_BITS + 31) // 32
-                                        + 1)[:, None], 0)
-    return words, totals
+    words, totals = hufpack_frame(lits.reshape(-1), streams,
+                                  table.to(torch.int32).view(1, 256),
+                                  S * M * Wp)
+    # the kernel writes words_per_stream(n) words a piece; the rest are 0
+    col = torch.arange(Wp, dtype=torch.int32, device=dev)
+    words = words.view(S * M, Wp).masked_fill(
+        col[None, :] >= ((n * MAX_HUF_BITS + 31) // 32 + 1)[:, None], 0)
+    words = words.view(S, M, Wp).to(torch.int64) & _M
+    bits = totals.view(S, M).to(torch.int64)
+    off = bits.flip(1).cumsum(1).flip(1) - bits     # bits of later pieces
+    sh = (off & 31)[:, :, None]
+    at = ((off >> 5)[:, :, None]
+          + torch.arange(Wp, device=dev)).view(S, M * Wp)
+    # the last word a piece reaches is at most W - 1 (+1 for its spill)
+    acc = torch.zeros((S, W + 1), dtype=torch.int64, device=dev)
+    acc.scatter_add_(1, at, ((words << sh) & _M).view(S, M * Wp))
+    acc.scatter_add_(1, at + 1, (words >> (32 - sh)).view(S, M * Wp))
+    out = acc[:, :W]
+    return ((out - ((out & 0x80000000) << 1)).to(torch.int32),
+            bits.sum(1).to(torch.int32))

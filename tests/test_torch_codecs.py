@@ -182,7 +182,11 @@ def _check_hufpack(lits, n_lit):
     wx, tx = jentropy._make_hufpack_xla(n_pad, 6, S)(lits, n_lit, cv, cl)
     np.testing.assert_array_equal(words, np.asarray(wx))
     np.testing.assert_array_equal(totals, np.asarray(tx))
-    if n_pad >= jek.MIN_PALLAS_PAD:
+    # the Pallas kernel misaddresses rows whose 128-byte row count its row
+    # tile does not divide, and its guard lets them through (ROADMAP
+    # queue C): it is held only where its tiling holds
+    if n_pad >= jek.MIN_PALLAS_PAD and \
+            (n_pad // 128) % jek._row_tile(n_pad) == 0:
         wp, tp = jek.make_hufpack_rows_fn(n_pad, S)(
             lits.reshape(-1, 128), n_lit, jek.pack_code_table(cv, cl))
         np.testing.assert_array_equal(totals, np.asarray(tp))
@@ -221,6 +225,43 @@ def test_hufpack_skewed_code_lengths():
     cv, cl = _codes(lits)
     assert cl.max() == zstd_frame.MAX_HUF_BITS and cl[cl > 0].min() == 1
     _check_hufpack(lits, np.array([2048, 2047], np.int32))
+
+
+@pytest.mark.parametrize("n_pad,n_lit", [
+    (65536, [65536, 65536 - 8191]), (2 * 32768 + 4096, [69632, 33000, 5]),
+])
+def test_hufpack_rows_longer_than_a_kernel_stream(n_pad, n_lit, monkeypatch):
+    """Rows longer than the longest stream the kernel takes
+    (MAX_STREAM_LITS; bench.py's device_entropy packs rows of 128 KiB
+    through make_hufpack_rows_fn) reach the frame pack in one call as
+    pieces of at most MAX_STREAM_LITS literals, and the merged rows equal
+    the JAX package's XLA scatter oracle, its Pallas kernel in interpret
+    mode (where its tiling holds: 65536) and the host encoder, with 1-bit
+    and 11-bit codes.  The wrapper used to refuse such rows on the card."""
+    calls = []
+    frame = entropy_kernel.hufpack_frame
+
+    def spy(lits, streams, tables, n_words):
+        calls.append(streams.numpy().copy())
+        return frame(lits, streams, tables, n_words)
+
+    monkeypatch.setattr(entropy_kernel, "hufpack_frame", spy)
+    n_lit = np.array(n_lit, np.int32)
+    # byte 0 most of the time, 20 bytes 100 times and the rest once a
+    # tile: 1-bit and 11-bit codes
+    rng = np.random.default_rng(11)
+    tile = np.repeat(np.arange(256), np.r_[[12000], np.full(20, 100),
+                                           np.ones(235, np.int64)])
+    lits = np.stack([np.resize(rng.permutation(tile), n_pad)
+                     for _ in n_lit]).astype(np.uint8)
+    for i, n in enumerate(n_lit):
+        lits[i, n:] = 0
+    cv, cl = _codes(lits)
+    assert cl.max() == zstd_frame.MAX_HUF_BITS and cl[cl > 0].min() == 1
+    _check_hufpack(lits, n_lit)
+    streams, = calls
+    assert streams[:, 1].max() == entropy_kernel.MAX_STREAM_LITS
+    assert len(streams) == len(n_lit) * -(-n_pad // streams[:, 1].max())
 
 
 def test_code_table_refuses_long_codes():

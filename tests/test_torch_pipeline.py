@@ -559,11 +559,13 @@ assert not bad, bad
 
 
 def test_no_jax_import_in_the_port():
-    """No import statement of the port, of chip_smoke.py or of
-    tools/profile_torch_codecs.py names jax or the JAX package."""
+    """No import statement of the port, of chip_smoke.py, of
+    bench_torch.py or of tools/profile_torch_codecs.py names jax or the
+    JAX package."""
     import ast
 
     paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py"),
              os.path.join(REPO, "tools", "profile_torch_codecs.py")]
     for d, _, files in os.walk(os.path.join(REPO, "longtail_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
