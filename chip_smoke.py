@@ -35,7 +35,12 @@ line):
    Huffman section of an 8 MiB block of the structured data, and on the
    four streams of its 128 KiB zstd block with the most literals, a
    short single-stream section (both also through the (S, n_pad)
-   interface) and a frame with 1-bit and 11-bit codes;
+   interface) and a frame with 1-bit and 11-bit codes; and its (S, n_pad)
+   interface on rows longer than a piece (device_entropy's 128 x 128 KiB
+   and 2 ragged rows of 1 MiB of 1-bit and 11-bit codes: a memset and
+   two launches a call, no scatter and no op over the words beside the
+   piece list's small ops), against hufpack_plain and the plain version
+   of its kernels, with both kernels' device time summed per call;
 4. main path: the CLI's ``upsync`` of a synthetic asset tree (--gib GiB,
    default 1) on the card, which it uses by default, at the defaults
    (32 KiB target chunk, 64 MiB batches, 8 MiB blocks), with zstd (the
@@ -85,7 +90,8 @@ scan, walk and BLAKE3 must launch on each of phases 7-11, the Huffman
 pack on the zstd pack; in phase 13 the kernels of each mode's path
 (scan, walk, BLAKE3 for the data plane, the mesh, real and downsync, the
 Huffman pack for chunk_hash_compress's zstd context, device_entropy, real
-and downsync), pack and BLAKE2 never.
+and downsync, and its (S, n_pad) rows for device_entropy), pack and
+BLAKE2 never.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
@@ -270,18 +276,21 @@ def spin_ms(fn, reps: int) -> float:
     raise AssertionError("the spin never outlasted the host's submission")
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time of one launch of the CUDA kernel whose name holds
-    `kernel`, under torch.profiler over reps calls of fn() (one launch
-    each) after one warm-up: the kernel's own time, without the wrapper's
-    host submission, which back-to-back CUDA events also see when the
-    kernel is shorter than it.  The mean is over the launches the
-    profiler recorded, which may be fewer than reps.  The profiler's
-    CUDA tracing sometimes records no kernel at all for the rest of the
-    process: after three sessions that saw no launch, the time is taken
-    by spin_ms instead, and a line says so."""
+def device_ms(fn, reps: int, kernels) -> float:
+    """Mean device time per call of fn() of the CUDA kernels whose names
+    hold `kernels` (a name fragment, or a tuple of fragments for a call
+    that launches several kernels: the sum of each one's mean per
+    launch), under torch.profiler over reps calls of fn() after one
+    warm-up: the kernels' own time, without the wrapper's host
+    submission, which back-to-back CUDA events also see when the kernels
+    are shorter than it.  Each mean is over the launches the profiler
+    recorded, which may be fewer than reps.  The profiler's CUDA tracing
+    sometimes records no kernel at all for the rest of the process: after
+    three sessions that missed a fragment, the time of the whole call is
+    taken by spin_ms instead, and a line says so."""
     import torch
 
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -290,13 +299,18 @@ def device_ms(fn, reps: int, kernel: str) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key]
-        seen = sum(e.count for e in hits)
-        if seen:
-            return sum(e.device_time_total for e in hits) / 1e3 / seen
+        means = []
+        for kernel in kernels:
+            hits = [e for e in prof.key_averages() if kernel in e.key]
+            seen = sum(e.count for e in hits)
+            if seen:
+                means.append(sum(e.device_time_total for e in hits) / 1e3
+                             / seen)
+        if len(means) == len(kernels):
+            return sum(means)
     ms = spin_ms(fn, reps)
-    log(f"{kernel}: the profiler saw no launch in 3 sessions; {ms:.4f} ms "
-        f"of device time by CUDA events behind a spin")
+    log(f"{'+'.join(kernels)}: the profiler saw no launch in 3 sessions; "
+        f"{ms:.4f} ms of device time by CUDA events behind a spin")
     return ms
 
 
@@ -381,6 +395,55 @@ def hufpack_cases(rng, dev):
     if not frame or max(c[1] for c in cases) != zstd_frame.MAX_HUF_BITS:
         raise AssertionError("hufpack cases miss a branch")
     return cases
+
+
+def hufpack_rows_cases(rng, dev):
+    """The (S, n_pad) interface's rows, on dev: device_entropy's 128 rows
+    of 128 KiB (bench_torch.literal_rows, 4 pieces a row) and 2 ragged
+    rows of 1 MiB (32 pieces a row) of 1-bit and 11-bit codes.  Returns
+    [(name, [lits, n_lit, table])]."""
+    import torch
+
+    import bench_torch as bt
+    from longtail_tpu_torch.ops import entropy_kernel, zstd_frame
+
+    S, n_pad = bt.ENTROPY_STREAMS, bt.ENTROPY_STREAM_BYTES
+    lits, table = bt.literal_rows(bt.literal_stream(), S, n_pad)
+    cases = [(f"device_entropy's {S} x {n_pad >> 10} KiB",
+              (lits, np.full((S,), n_pad, np.int32), table))]
+    # byte 0 12000 times, 20 bytes 100 times, the rest once a tile
+    tile = np.repeat(np.arange(256), np.r_[[12000], np.full(20, 100),
+                                           np.ones(235, np.int64)])
+    n_lit = np.array([(1 << 20) - 5, 300001], np.int32)
+    lits = np.stack([np.resize(rng.permutation(tile), 1 << 20)
+                     for _ in n_lit]).astype(np.uint8)
+    _, cv, cl = zstd_frame.build_huffman(
+        np.bincount(lits.reshape(-1), minlength=256).tolist())
+    if max(cl) != zstd_frame.MAX_HUF_BITS or min(c for c in cl if c) != 1:
+        raise AssertionError("the 1 MiB rows miss 1-bit or 11-bit codes")
+    for i, n in enumerate(n_lit):
+        lits[i, n:] = 0
+    cases.append(("2 ragged x 1 MiB, 1-bit and 11-bit codes",
+                  (lits, n_lit, entropy_kernel.pack_code_table(cv, cl))))
+    return [(name, [torch.from_numpy(np.array(x)).to(dev) for x in arrs])
+            for name, arrs in cases]
+
+
+def ops_per_call(fn, reps: int = 5) -> dict:
+    """{CUDA op name: (launches a call, mean device us)} of fn() under
+    torch.profiler (empty when the profiler records nothing)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / reps, e.device_time_total / e.count)
+            for e in prof.key_averages()
+            if e.count and e.device_time_total > 0}
 
 
 def cut_c_pad(plan, c_pad: int):
@@ -839,6 +902,36 @@ def check_kernels(seed: int) -> list:
         if name.startswith("8 MiB frame"):
             frame = (ms, cuda_ms(lambda: entropy_kernel.hufpack_frame_plain(
                 *ins, n_words), 3), dms, nbytes(*ins, *out))
+    # the (S, n_pad) interface on rows longer than a piece: a memset and
+    # two launches a call, against the contract and the plain version of
+    # its kernels; beside it, every other CUDA op of the call must be one
+    # of the small ops of the piece list (no scatter, no op over the words)
+    rows_kernels = ("hufbits_kernel", "hufrows_kernel")
+    for name, args in hufpack_rows_cases(rng, dev):
+        got = entropy_kernel.hufpack(*args)
+        e = max(max_abs_err(got, entropy_kernel.hufpack_plain(*args)),
+                max_abs_err(got, entropy_kernel.hufpack_pieces_plain(*args)))
+        herr = max(herr, e)
+        ops = ops_per_call(lambda: entropy_kernel.hufpack(*args))
+        rest = {k: v for k, v in ops.items()
+                if not any(f in k for f in rows_kernels + ("Memset",))}
+        if any("scatter" in k or v[1] > 10.0 for k, v in rest.items()):
+            raise AssertionError(f"hufpack {name}: ops beside the kernels "
+                                 f"{rest}")
+        kms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
+                        rows_kernels)
+        allms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
+                          rows_kernels + ("Memset",))
+        ms = cuda_ms(lambda: entropy_kernel.hufpack(*args), 20)
+        plain_ms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*args), 3)
+        bnd = bound(nbytes(*args, *got), 0)
+        log(f"hufpack rows, {name}: max_abs_err {e}; the two kernels "
+            f"{kms:.4f} ms of device time a call (with the memset "
+            f"{allms:.4f}), the (S, n_pad) interface {ms:.4f} ms by "
+            f"events, plain {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms by "
+            f"{bnd[1]}; {sum(c for c, _ in rest.values()):g} small ops a "
+            f"call beside them, longest "
+            f"{max((u for _, u in rest.values()), default=0.0):.3f} us")
     row("hufpack", entropy_kernel.SOURCE, entropy_kernel.REPLACES, herr,
         frame[0], frame[1], frame[2], bound(frame[3], 0))
     return rows
@@ -1343,7 +1436,8 @@ def bench_phase(src: str, wrappers: dict) -> dict:
             {"host_decode_gbps_per_core", "note"}, ()),
         "device_entropy": (
             lambda: bt.bench_device_entropy(0, "cuda"),
-            {"section_ratio", "device_zstd_ratio"} | l3, ("hufpack",)),
+            {"section_ratio", "device_zstd_ratio"} | l3,
+            ("hufpack", "hufpack_rows")),
         "compress": (lambda: bt.bench_compress(gib // 4, "cuda"), set(), ()),
         "real": (
             lambda: bt.bench_real_data(0, src, "cuda"),
@@ -1377,32 +1471,6 @@ def bench_phase(src: str, wrappers: dict) -> dict:
         if counts["pack"] or counts["blake2"]:
             raise AssertionError(f"bench {mode} launched pack or BLAKE2")
         out[mode] = counts
-
-    # the Huffman pack at device_entropy's shape, rows longer than one
-    # kernel stream: the interface against its plain version, the
-    # kernel's device time, the interface's by events, the bound
-    import torch
-
-    from longtail_tpu_torch.ops import entropy_kernel
-
-    S, n_pad = bt.ENTROPY_STREAMS, bt.ENTROPY_STREAM_BYTES
-    lits, table = bt.literal_rows(bt.literal_stream(), S, n_pad)
-    args = [torch.from_numpy(lits).cuda(),
-            torch.full((S,), n_pad, dtype=torch.int32, device="cuda"),
-            torch.from_numpy(table).cuda()]
-    got = entropy_kernel.hufpack(*args)
-    err = max_abs_err(got, entropy_kernel.hufpack_plain(*args))
-    if err:
-        raise AssertionError(f"hufpack at {S} x {n_pad}: max_abs_err {err}")
-    bnd = bound(nbytes(*args, *got), 0)
-    dev_ms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
-                       "hufpack_kernel")
-    ms = cuda_ms(lambda: entropy_kernel.hufpack(*args), 20)
-    plain_ms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*args), 3)
-    log(f"hufpack at device_entropy's {S} x {n_pad >> 10} KiB: max_abs_err "
-        f"{err}; kernel {dev_ms:.4f} ms of device time, the (S, n_pad) "
-        f"interface {ms:.4f} ms by events, plain {plain_ms:.4f} ms; bound "
-        f"{bnd[0]:.6f} ms by {bnd[1]}")
     return out
 
 
@@ -1472,7 +1540,8 @@ def main() -> int:
                 "pack": pack.pack,
                 "blake3": blake3_kernel.hash_chunks_device,
                 "blake2": blake2_kernel.hash_chunks_device,
-                "hufpack": entropy_kernel.hufpack_frame}
+                "hufpack": entropy_kernel.hufpack_frame,
+                "hufpack_rows": entropy_kernel.hufpack}
     paths = {  # name: (extra flags, kernels the path must launch, tree)
         "zstd": ([], ("scan", "walk", "blake3", "hufpack"), "src"),
         "lz4": (["--device", "--compression-algorithm", "lz4"],

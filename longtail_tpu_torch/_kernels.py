@@ -66,6 +66,9 @@ _SIGNATURES = {
     # lits, n_lits, streams, tables, words, totals, n_streams, n_tables,
     # n_words, stream
     "lt_hufpack": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lits, n_lits, pieces, table, bits, words, totals, n_pieces, n_rows,
+    # row_words, stream
+    "lt_hufpack_rows": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,26 +1,31 @@
-"""The backward Huffman bit pack of the zstd literals: the wrapper of
-``csrc/hufpack.cu`` and its plain PyTorch versions.
+"""The backward Huffman bit pack of the zstd literals: the wrappers of
+``csrc/hufpack.cu`` and their plain PyTorch versions.
 
 The counterpart of ``longtail_tpu/ops/entropy_kernel.py``
 (``make_hufpack_rows_fn``, the Pallas bit-merge kernel) and of the XLA
 scatter formulation it replaced (``device_entropy._make_hufpack_xla``).
-One kernel packs streams laid out by ``frame_inputs``:
+A block of the kernels packs a piece of at most ``MAX_STREAM_LITS``
+literals (its words live in one block's shared memory):
 
 - ``hufpack_frame(lits, streams, tables, n_words)``: every Huffman
   stream of a zstd frame, each with its own section's code table, in one
-  launch (the zstd device tier's path);
-- ``hufpack(lits, n_lit, table)``: rows of one table, the JAX package's
-  ``(S, n_pad)`` interface, as streams at each row.
+  launch (the zstd device tier's path; a 128 KiB zstd block's four
+  streams are each one piece);
+- ``hufpack(lits, n_lit, table)``: rows of one table and any length, the
+  JAX package's ``(S, n_pad)`` interface, each row cut into pieces
+  (``row_pieces``) that two launches pack: one sums each piece's code
+  lengths, the next packs each piece at the bit total of the pieces after
+  it in its row.
 
 For a CPU tensor each wrapper computes its plain version
-(``hufpack_frame_plain``, ``hufpack_plain``); for a CUDA tensor it
-launches the kernel or raises.  The TPU's ``MIN_PALLAS_PAD`` and ``% 128``
-guards are Mosaic's rules, not the card's; the card takes streams of up
-to ``MAX_STREAM_LITS`` literals (a 128 KiB zstd block's in four streams).
+(``hufpack_frame_plain``, ``hufpack_pieces_plain``); for a CUDA tensor it
+launches the kernels or raises.  The TPU's ``MIN_PALLAS_PAD`` and ``% 128``
+guards are Mosaic's rules, not the card's.
 
-Contract (RFC 8878 §4.2.1): stream s's literal i has its code at bit
-offset sum(len[j] for i < j < n_lit[s]), bits stacked LSB-up, exactly the
-pattern of ``zstd_frame._huf_encode_stream`` before its sentinel bit.
+Contract (RFC 8878 §4.2.1, ``hufpack_plain``): stream s's literal i has
+its code at bit offset sum(len[j] for i < j < n_lit[s]), bits stacked
+LSB-up, exactly the pattern of ``zstd_frame._huf_encode_stream`` before
+its sentinel bit.
 """
 
 from __future__ import annotations
@@ -171,49 +176,104 @@ def hufpack_frame(lits: torch.Tensor, streams: torch.Tensor,
 hufpack_frame.LAUNCHES = 0
 
 
-def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
-    """The (S, n_pad) interface through hufpack_frame (the kernel on a
-    CUDA tensor, its plain version on a CPU one); same contract as
-    hufpack_plain, for any n_pad that is a multiple of LIT_ALIGN.
+def pieces_per_row(n_pad: int) -> int:
+    """M: the pieces of MAX_STREAM_LITS literals a row of n_pad takes (at
+    least one, so that every row's total is written)."""
+    return max(1, -(-n_pad // MAX_STREAM_LITS))
 
-    Each row is cut into pieces of at most MAX_STREAM_LITS literals (the
-    longest stream the kernel takes), all packed in one call with no
-    read of n_lit on the host.  The stream is backward, so piece m of a
-    row lands at the bit total of the pieces after it: its words are
-    shifted there and added, which equals their OR (the bits are
-    disjoint)."""
+
+def row_pieces(n_lit: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The piece list of S rows of n_pad literal slots: (S * M, 4) int32
+    rows (first literal in the rows laid end to end, literals, row,
+    pieces after it in its row), M = pieces_per_row(n_pad), piece m of
+    row s at literal m * MAX_STREAM_LITS of the row with its share of
+    n_lit[s] (0 past it).  Computed on n_lit's device, with no read of
+    n_lit on the host."""
+    S, M = n_lit.shape[0], pieces_per_row(n_pad)
+    piece = torch.arange(S * M, dtype=torch.int32, device=n_lit.device)
+    row, m = piece // M, piece % M
+    first = m * MAX_STREAM_LITS
+    n = (n_lit.to(torch.int32).clamp(0, n_pad)[row]
+         - first).clamp(0, MAX_STREAM_LITS)
+    return torch.stack([row * n_pad + first, n, row, M - 1 - m],
+                       dim=1).contiguous()
+
+
+def _check_rows(lits: torch.Tensor) -> None:
     S, n_pad = lits.shape
-    if n_pad % LIT_ALIGN:
-        raise ValueError(f"rows of {n_pad} literals: a multiple of "
-                         f"{LIT_ALIGN} is needed")
+    if n_pad <= 0 or n_pad % LIT_ALIGN:
+        raise ValueError(f"rows of {n_pad} literals: a positive multiple "
+                         f"of {LIT_ALIGN} is needed")
+    if S * n_pad >= 1 << 31 or n_pad * MAX_HUF_BITS >= 1 << 31:
+        raise ValueError(f"{S} rows of {n_pad} literals: the kernels "
+                         "address literals and a row's bits in int32")
+
+
+def hufpack_pieces_plain(lits: torch.Tensor, n_lit: torch.Tensor,
+                         table: torch.Tensor):
+    """Plain version of hufpack's kernels, on its piece list: each piece
+    packed alone (hufpack_plain), its bit offset the total of the pieces
+    after it in its row, its words shifted there and added, which equals
+    their OR (the bits are disjoint).  Same contract as hufpack_plain."""
+    _check_rows(lits)
+    S, n_pad = lits.shape
     dev = lits.device
-    L = min(n_pad, MAX_STREAM_LITS)
-    M = -(-n_pad // L)                      # pieces a row
+    pieces = row_pieces(n_lit.to(dev), n_pad).to(torch.int64)
+    P, L = pieces.shape[0], min(n_pad, MAX_STREAM_LITS)
     Wp, W = words_per_stream(L), words_per_stream(n_pad)
-    piece = torch.arange(S * M, dtype=torch.int32, device=dev)
-    first = (piece % M) * L                 # the piece's first literal
-    n = (n_lit.to(device=dev, dtype=torch.int32).clamp(0, n_pad)
-         .repeat_interleave(M) - first).clamp(0, L)
-    streams = torch.stack([(piece // M) * n_pad + first, n,
-                           torch.zeros_like(piece), piece * Wp],
-                          dim=1).contiguous()
-    words, totals = hufpack_frame(lits.reshape(-1), streams,
-                                  table.to(torch.int32).view(1, 256),
-                                  S * M * Wp)
-    # the kernel writes words_per_stream(n) words a piece; the rest are 0
-    col = torch.arange(Wp, dtype=torch.int32, device=dev)
-    words = words.view(S * M, Wp).masked_fill(
-        col[None, :] >= ((n * MAX_HUF_BITS + 31) // 32 + 1)[:, None], 0)
-    words = words.view(S, M, Wp).to(torch.int64) & _M
-    bits = totals.view(S, M).to(torch.int64)
-    off = bits.flip(1).cumsum(1).flip(1) - bits     # bits of later pieces
-    sh = (off & 31)[:, :, None]
-    at = ((off >> 5)[:, :, None]
-          + torch.arange(Wp, device=dev)).view(S, M * Wp)
-    # the last word a piece reaches is at most W - 1 (+1 for its spill)
-    acc = torch.zeros((S, W + 1), dtype=torch.int64, device=dev)
-    acc.scatter_add_(1, at, ((words << sh) & _M).view(S, M * Wp))
-    acc.scatter_add_(1, at + 1, (words >> (32 - sh)).view(S, M * Wp))
-    out = acc[:, :W]
+    flat = torch.nn.functional.pad(lits.reshape(-1), (0, L))
+    at = pieces[:, :1] + torch.arange(L, device=dev)
+    words, bits = hufpack_plain(flat[at], pieces[:, 1], table)
+    words = words.to(torch.int64) & _M
+    bits = bits.to(torch.int64)
+    csum = torch.cumsum(bits, 0)
+    off = csum[torch.arange(P, device=dev) + pieces[:, 3]] - csum
+    sh = (off & 31)[:, None]
+    # a piece's last word is at most W - 1 of its row (+1 for its spill)
+    at = (pieces[:, 2:3] * (W + 1) + (off >> 5)[:, None]
+          + torch.arange(Wp, device=dev))
+    acc = torch.zeros((S * (W + 1),), dtype=torch.int64, device=dev)
+    acc.scatter_add_(0, at.reshape(-1), ((words << sh) & _M).reshape(-1))
+    acc.scatter_add_(0, (at + 1).reshape(-1),
+                     (words >> (32 - sh)).reshape(-1))
+    out = acc.view(S, W + 1)[:, :W]
+    totals = torch.zeros((S,), dtype=torch.int64, device=dev)
+    totals.index_add_(0, pieces[:, 2], bits)
     return ((out - ((out & 0x80000000) << 1)).to(torch.int32),
-            bits.sum(1).to(torch.int32))
+            totals.to(torch.int32))
+
+
+def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
+    """Kernel wrapper of the (S, n_pad) interface: same contract as
+    hufpack_plain, for any positive n_pad that is a multiple of
+    LIT_ALIGN.  On a CUDA tensor: the piece list (row_pieces, a few small
+    ops), then one entry point that zeroes the words, sums each piece's
+    code lengths and packs each piece in place (a memset and two kernel
+    launches, counted once)."""
+    if lits.device.type == "cpu":
+        return hufpack_pieces_plain(lits, n_lit, table)
+    _check_rows(lits)
+    S, n_pad = lits.shape
+    dev = lits.device
+    _kernels.require("lits", lits, torch.uint8, (S, n_pad), dev)
+    if lits.data_ptr() % LIT_ALIGN:
+        raise ValueError("lits: 16-byte aligned rows are needed")
+    table = table.to(device=dev, dtype=torch.int32).contiguous()
+    _kernels.require("table", table, torch.int32, (256,), dev)
+    pieces = row_pieces(n_lit.to(dev), n_pad)
+    P, W = pieces.shape[0], words_per_stream(n_pad)
+    bits = torch.empty((P,), dtype=torch.int32, device=dev)
+    words = torch.empty((S, W), dtype=torch.int32, device=dev)
+    totals = torch.empty((S,), dtype=torch.int32, device=dev)
+    if S:
+        with torch.cuda.device(dev):
+            rc = _kernels.load().lt_hufpack_rows(
+                lits.data_ptr(), lits.numel(), pieces.data_ptr(),
+                table.data_ptr(), bits.data_ptr(), words.data_ptr(),
+                totals.data_ptr(), P, S, W, _kernels.stream_of(lits))
+        _kernels.check(rc, "lt_hufpack_rows")
+        _kernels.count_launch(hufpack)
+    return words, totals
+
+
+hufpack.LAUNCHES = 0

@@ -231,21 +231,25 @@ def test_hufpack_skewed_code_lengths():
     (65536, [65536, 65536 - 8191]), (2 * 32768 + 4096, [69632, 33000, 5]),
 ])
 def test_hufpack_rows_longer_than_a_kernel_stream(n_pad, n_lit, monkeypatch):
-    """Rows longer than the longest stream the kernel takes
+    """Rows longer than the longest stream a block of the kernels takes
     (MAX_STREAM_LITS; bench.py's device_entropy packs rows of 128 KiB
-    through make_hufpack_rows_fn) reach the frame pack in one call as
-    pieces of at most MAX_STREAM_LITS literals, and the merged rows equal
-    the JAX package's XLA scatter oracle, its Pallas kernel in interpret
-    mode (where its tiling holds: 65536) and the host encoder, with 1-bit
-    and 11-bit codes.  The wrapper used to refuse such rows on the card."""
+    through make_hufpack_rows_fn) go to the piece kernels' plain version
+    as one piece list of MAX_STREAM_LITS-literal pieces, never through the
+    frame pack, and the packed rows equal the JAX package's XLA scatter
+    oracle, its Pallas kernel in interpret mode (where its tiling holds:
+    65536) and the host encoder, with 1-bit and 11-bit codes."""
     calls = []
-    frame = entropy_kernel.hufpack_frame
+    row_pieces = entropy_kernel.row_pieces
 
-    def spy(lits, streams, tables, n_words):
-        calls.append(streams.numpy().copy())
-        return frame(lits, streams, tables, n_words)
+    def spy(n_lit, n_pad):
+        calls.append(row_pieces(n_lit, n_pad).numpy().copy())
+        return torch.from_numpy(calls[-1])
 
-    monkeypatch.setattr(entropy_kernel, "hufpack_frame", spy)
+    def no_frame(*args):
+        raise AssertionError("the rows went through the frame pack")
+
+    monkeypatch.setattr(entropy_kernel, "row_pieces", spy)
+    monkeypatch.setattr(entropy_kernel, "hufpack_frame", no_frame)
     n_lit = np.array(n_lit, np.int32)
     # byte 0 most of the time, 20 bytes 100 times and the rest once a
     # tile: 1-bit and 11-bit codes
@@ -259,9 +263,12 @@ def test_hufpack_rows_longer_than_a_kernel_stream(n_pad, n_lit, monkeypatch):
     cv, cl = _codes(lits)
     assert cl.max() == zstd_frame.MAX_HUF_BITS and cl[cl > 0].min() == 1
     _check_hufpack(lits, n_lit)
-    streams, = calls
-    assert streams[:, 1].max() == entropy_kernel.MAX_STREAM_LITS
-    assert len(streams) == len(n_lit) * -(-n_pad // streams[:, 1].max())
+    pieces, = calls
+    M = -(-n_pad // entropy_kernel.MAX_STREAM_LITS)
+    assert pieces[:, 1].max() == entropy_kernel.MAX_STREAM_LITS
+    assert len(pieces) == len(n_lit) * M
+    assert pieces[:, 1].reshape(-1, M).sum(1).tolist() == n_lit.tolist()
+    assert entropy_kernel.hufpack.LAUNCHES == 0
 
 
 def test_code_table_refuses_long_codes():
