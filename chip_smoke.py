@@ -36,11 +36,12 @@ line):
    four streams of its 128 KiB zstd block with the most literals, a
    short single-stream section (both also through the (S, n_pad)
    interface) and a frame with 1-bit and 11-bit codes; and its (S, n_pad)
-   interface on rows longer than a piece (device_entropy's 128 x 128 KiB
-   and 2 ragged rows of 1 MiB of 1-bit and 11-bit codes: a memset and
-   two launches a call, no scatter and no op over the words beside the
-   piece list's small ops), against hufpack_plain and the plain version
-   of its kernels, with both kernels' device time summed per call;
+   interface (device_entropy's 128 x 128 KiB, 2 ragged rows of 1 MiB
+   and one of 2 MiB of 1-bit and 11-bit codes, ragged 1 MiB rows whose
+   last piece holds 3 literals or none, rows of one piece and of one
+   piece + 16, 0-bit pieces), each call one launch of hufrows_kernel and
+   no other CUDA op under the profiler, against hufpack_plain and the
+   plain version of its kernel;
 4. main path: the CLI's ``upsync`` of a synthetic asset tree (--gib GiB,
    default 1) on the card, which it uses by default, at the defaults
    (32 KiB target chunk, 64 MiB batches, 8 MiB blocks), with zstd (the
@@ -399,14 +400,19 @@ def hufpack_cases(rng, dev):
 
 def hufpack_rows_cases(rng, dev):
     """The (S, n_pad) interface's rows, on dev: device_entropy's 128 rows
-    of 128 KiB (bench_torch.literal_rows, 4 pieces a row) and 2 ragged
-    rows of 1 MiB (32 pieces a row) of 1-bit and 11-bit codes.  Returns
-    [(name, [lits, n_lit, table])]."""
+    of 128 KiB (bench_torch.literal_rows, 4 pieces a row), 2 ragged rows
+    of 1 MiB (32 pieces a row) and one row of 2 MiB (64 pieces) of
+    1-bit and 11-bit codes; 1 MiB rows, one whose last non-empty piece
+    holds 3 literals (under 32 bits), one of n_lit 0 and one of 5 whole
+    pieces; rows of one piece and of one piece + 16; and 0-bit codes, so
+    that four pieces' bits meet in one word.  Returns [(name, [lits,
+    n_lit, table])]."""
     import torch
 
     import bench_torch as bt
     from longtail_tpu_torch.ops import entropy_kernel, zstd_frame
 
+    L = entropy_kernel.MAX_STREAM_LITS
     S, n_pad = bt.ENTROPY_STREAMS, bt.ENTROPY_STREAM_BYTES
     lits, table = bt.literal_rows(bt.literal_stream(), S, n_pad)
     cases = [(f"device_entropy's {S} x {n_pad >> 10} KiB",
@@ -414,17 +420,41 @@ def hufpack_rows_cases(rng, dev):
     # byte 0 12000 times, 20 bytes 100 times, the rest once a tile
     tile = np.repeat(np.arange(256), np.r_[[12000], np.full(20, 100),
                                            np.ones(235, np.int64)])
-    n_lit = np.array([(1 << 20) - 5, 300001], np.int32)
-    lits = np.stack([np.resize(rng.permutation(tile), 1 << 20)
-                     for _ in n_lit]).astype(np.uint8)
-    _, cv, cl = zstd_frame.build_huffman(
-        np.bincount(lits.reshape(-1), minlength=256).tolist())
-    if max(cl) != zstd_frame.MAX_HUF_BITS or min(c for c in cl if c) != 1:
-        raise AssertionError("the 1 MiB rows miss 1-bit or 11-bit codes")
-    for i, n in enumerate(n_lit):
-        lits[i, n:] = 0
-    cases.append(("2 ragged x 1 MiB, 1-bit and 11-bit codes",
-                  (lits, n_lit, entropy_kernel.pack_code_table(cv, cl))))
+
+    def skewed(name, n_pad, n_lit):
+        n_lit = np.array(n_lit, np.int32)
+        lits = np.stack([np.resize(rng.permutation(tile), n_pad)
+                         for _ in n_lit]).astype(np.uint8)
+        _, cv, cl = zstd_frame.build_huffman(
+            np.bincount(lits.reshape(-1), minlength=256).tolist())
+        if max(cl) != zstd_frame.MAX_HUF_BITS or \
+                min(c for c in cl if c) != 1:
+            raise AssertionError(f"{name}: no 1-bit or 11-bit codes")
+        for i, n in enumerate(n_lit):
+            lits[i, n:] = 0
+        cases.append((name, (lits, n_lit,
+                             entropy_kernel.pack_code_table(cv, cl))))
+        return lits, n_lit, cl
+
+    skewed("2 ragged x 1 MiB, 1-bit and 11-bit codes", 1 << 20,
+           [(1 << 20) - 5, 300001])
+    skewed("one 2 MiB row", 2 << 20, [2 << 20])
+    lits, n_lit, cl = skewed("ragged 1 MiB rows: a last piece of 3 "
+                             "literals, n_lit 0, 5 pieces", 1 << 20,
+                             [20 * L + 3, 0, 5 * L])
+    if not 0 < sum(cl[b] for b in lits[0, 20 * L:20 * L + 3]) < 32:
+        raise AssertionError("the ragged row's last piece holds 32 bits")
+    skewed("one piece", L, [L, 0, 3, L - 1])
+    skewed("one piece + 16", L + 16, [L + 16, 0, L + 3, 16])
+    # 0-bit codes: bits only in a row's first and last pieces, all in
+    # word 0, and a row of no bits
+    lits = np.zeros((3, 4 * L), np.uint8)
+    lits[:, :4] = rng.integers(1, 4, (3, 4))
+    lits[:2, 3 * L:3 * L + 5] = rng.integers(1, 4, (2, 5))
+    lits[2] = 0
+    cases.append(("0-bit pieces", (lits, np.array(
+        [3 * L + 5, 4 * L, 2 * L], np.int32), entropy_kernel.pack_code_table(
+            [0, 0, 2, 3], [0, 1, 2, 2]))))
     return [(name, [torch.from_numpy(np.array(x)).to(dev) for x in arrs])
             for name, arrs in cases]
 
@@ -902,36 +932,38 @@ def check_kernels(seed: int) -> list:
         if name.startswith("8 MiB frame"):
             frame = (ms, cuda_ms(lambda: entropy_kernel.hufpack_frame_plain(
                 *ins, n_words), 3), dms, nbytes(*ins, *out))
-    # the (S, n_pad) interface on rows longer than a piece: a memset and
-    # two launches a call, against the contract and the plain version of
-    # its kernels; beside it, every other CUDA op of the call must be one
-    # of the small ops of the piece list (no scatter, no op over the words)
-    rows_kernels = ("hufbits_kernel", "hufrows_kernel")
+    # the (S, n_pad) interface: one launch of hufrows_kernel a call and no
+    # other CUDA op (no memset, no piece list), against the contract and
+    # the plain version of its kernel
     for name, args in hufpack_rows_cases(rng, dev):
         got = entropy_kernel.hufpack(*args)
         e = max(max_abs_err(got, entropy_kernel.hufpack_plain(*args)),
                 max_abs_err(got, entropy_kernel.hufpack_pieces_plain(*args)))
         herr = max(herr, e)
-        ops = ops_per_call(lambda: entropy_kernel.hufpack(*args))
-        rest = {k: v for k, v in ops.items()
-                if not any(f in k for f in rows_kernels + ("Memset",))}
-        if any("scatter" in k or v[1] > 10.0 for k, v in rest.items()):
-            raise AssertionError(f"hufpack {name}: ops beside the kernels "
-                                 f"{rest}")
+        for _ in range(3):          # a session may miss launches
+            ops = ops_per_call(lambda: entropy_kernel.hufpack(*args))
+            rows_ops = sum(c for k, (c, _) in ops.items()
+                           if "hufrows_kernel" in k)
+            if rows_ops > 1.0 or any("hufrows_kernel" not in k
+                                     for k in ops):
+                raise AssertionError(f"hufpack {name}: CUDA ops a call "
+                                     f"{ops}, not one hufrows_kernel")
+            if rows_ops == 1.0:
+                break
+        else:
+            raise AssertionError(f"hufpack {name}: the profiler never saw "
+                                 f"one hufrows_kernel a call ({ops})")
         kms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
-                        rows_kernels)
-        allms = device_ms(lambda: entropy_kernel.hufpack(*args), 20,
-                          rows_kernels + ("Memset",))
+                        "hufrows_kernel")
         ms = cuda_ms(lambda: entropy_kernel.hufpack(*args), 20)
         plain_ms = cuda_ms(lambda: entropy_kernel.hufpack_plain(*args), 3)
         bnd = bound(nbytes(*args, *got), 0)
-        log(f"hufpack rows, {name}: max_abs_err {e}; the two kernels "
-            f"{kms:.4f} ms of device time a call (with the memset "
-            f"{allms:.4f}), the (S, n_pad) interface {ms:.4f} ms by "
-            f"events, plain {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms by "
-            f"{bnd[1]}; {sum(c for c, _ in rest.values()):g} small ops a "
-            f"call beside them, longest "
-            f"{max((u for _, u in rest.values()), default=0.0):.3f} us")
+        log(f"hufpack rows, {name}: {args[0].shape[0]} x "
+            f"{args[0].shape[1]}, {entropy_kernel.pieces_per_row(args[0].shape[1])}"
+            f" pieces a row, max_abs_err {e}; one launch a call: "
+            f"hufrows_kernel {kms:.4f} ms of device time, the (S, n_pad) "
+            f"interface {ms:.4f} ms by events, plain {plain_ms:.4f} ms; "
+            f"bound {bnd[0]:.6f} ms by {bnd[1]}")
     row("hufpack", entropy_kernel.SOURCE, entropy_kernel.REPLACES, herr,
         frame[0], frame[1], frame[2], bound(frame[3], 0))
     return rows

@@ -66,9 +66,10 @@ _SIGNATURES = {
     # lits, n_lits, streams, tables, words, totals, n_streams, n_tables,
     # n_words, stream
     "lt_hufpack": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
-    # lits, n_lits, pieces, table, bits, words, totals, n_pieces, n_rows,
-    # row_words, stream
-    "lt_hufpack_rows": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lits, n_lit, table, words, totals, work, n_rows, n_pad, row_words,
+    # zero_words, epoch, base, stream
+    "lt_hufpack_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U,
+                        _P],
 }
 
 

@@ -16,30 +16,35 @@
 //    tier's path, one launch per frame);
 //  - lt_hufpack_rows: rows of one table and any length, the JAX
 //    package's (S, n_pad) interface, cut into pieces of at most kMaxLits
-//    literals.  A memset zeroes the rows' words; one launch sums each
-//    piece's code lengths (hufbits_kernel); a second packs each piece at
-//    the bit total of the pieces after it in its row (the stream is
-//    backward), summed from the first launch's totals (hufrows_kernel).
-//    A piece's interior words are its own and are stored plainly; its
-//    first and last words may be shared with its neighbours and are
-//    ORed in with atomicOr (codes of different literals are
-//    bit-disjoint, so the ORs are exact in any order).
+//    literals, in one launch and nothing else: a block per piece reads
+//    its literals once, learns its bit offset (the bits of the pieces
+//    after it in its row: the stream is backward) by a single-pass
+//    look-back over their published totals, packs, and hands the word
+//    it shares with the piece above to that piece, which stores it; so
+//    every word is stored once, with no memset and no global atomic on
+//    the words (hufrows_kernel).
 //   Bound on the H100: a frame holds at most 8 MiB of literals and
 // usually far less, so its launch is bound by its round trips, which is
-// why the host calls it once per frame; the rows are bound by their
-// bytes (the literals read once, the words written once).  Per piece:
+// why the host calls it once per frame; the rows' least time is their
+// bytes' (the literals read once, the words written once), but the
+// kernel takes about three times that, held by the code-length scan and
+// the pack, each a chain of dependent integer steps per thread, and by
+// each block's waits on its loads and on the pieces after it
+// (tools/profile_torch_hufrows.py times the kernel without each).  Per
+// piece:
 //  - Each thread takes a contiguous run of 16 or 32 literals, read as
 //    16-byte loads (every piece starts at a 16-byte offset), and looks up
 //    their code lengths in the table, held in shared memory.
 //  - One block scan of the runs' bit counts, taken from the piece's end,
 //    gives each run its bit offset; no literal is read twice.
-//  - Each run appends its codes, last literal first, to a 64-bit register
-//    and ORs each finished 32-bit word into the piece's words in shared
-//    memory (at most kMaxLits x 11 bits + a start of up to 31 bits, 45
-//    KB), then the block stores them coalesced.
-// The kernels trap on a piece outside the buffers or longer than
-// kMaxLits, and on a table entry longer than kMaxBits or whose value does
-// not fit its length.
+//  - Each run appends its codes, last literal first, two at a time to a
+//    64-bit register and ORs each finished 32-bit word into the piece's
+//    words in shared memory (at most kMaxLits x 11 bits + a start of up
+//    to 31 bits, 45 KB), then the block stores them coalesced.
+// The kernels trap on a stream outside the buffers or longer than
+// kMaxLits, on a ticket outside the call's or a status that never comes,
+// and on a table entry longer than kMaxBits or whose value does not fit
+// its length.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -133,9 +138,38 @@ __device__ __forceinline__ int run_bits(const uint32_t* tab,
   int bits = 0;
 #pragma unroll
   for (int j = 0; j < kMaxRun; ++j) {
-    if (j < m) bits += (int)(tab[byte_at(q, j)] >> 16);
+    bits += j < m ? (int)(tab[byte_at(q, j)] >> 16) : 0;
   }
   return bits;
+}
+
+// the run's m codes into acc, last literal first, from bit base of acc:
+// two codes at a time onto fewer than 32 pending bits, after which at
+// most one word is done, ORed in (codes of different runs may share a
+// word), with no branch that splits the warp
+static_assert(31 + 2 * kMaxBits < 64 && kMaxRun % 2 == 0,
+              "two codes on 31 pending bits overflow the 64-bit buffer");
+__device__ __forceinline__ void pack_codes(uint32_t* acc,
+                                           const uint32_t* tab,
+                                           const uint4 q[2], int m,
+                                           int base) {
+  int w = base >> 5, fill = base & 31;
+  unsigned long long buf = 0ull;
+#pragma unroll
+  for (int j = kMaxRun - 1; j > 0; j -= 2) {
+    const uint32_t e1 = j < m ? tab[byte_at(q, j)] : 0u;
+    buf |= (unsigned long long)(e1 & 0xffffu) << fill;
+    fill += (int)(e1 >> 16);
+    const uint32_t e0 = j - 1 < m ? tab[byte_at(q, j - 1)] : 0u;
+    buf |= (unsigned long long)(e0 & 0xffffu) << fill;
+    fill += (int)(e0 >> 16);
+    const bool done = fill >= 32;
+    if (done) atomicOr(&acc[w], (uint32_t)buf);
+    buf = done ? buf >> 32 : buf;
+    fill -= done ? 32 : 0;
+    w += done;
+  }
+  if (fill > 0) atomicOr(&acc[w], (uint32_t)buf);
 }
 
 // the piece's codes into acc (zeroed, synchronised) from bit start:
@@ -146,26 +180,7 @@ __device__ __forceinline__ int pack_piece(uint32_t* acc, int* sums,
                                           int start) {
   const int incl = block_inclusive_sum(run_bits(tab, q, m), sums);
   const int total = sums[kWarps - 1];
-  if (m > 0) {
-    const int base = start + total - incl;  // bits of the later runs
-    int w = base >> 5, fill = base & 31;
-    unsigned long long buf = 0ull;
-#pragma unroll
-    for (int j = kMaxRun - 1; j >= 0; --j) {
-      if (j < m) {
-        const uint32_t e = tab[byte_at(q, j)];
-        buf |= (unsigned long long)(e & 0xffffu) << fill;
-        fill += (int)(e >> 16);
-        if (fill >= 32) {
-          atomicOr(&acc[w], (uint32_t)buf);
-          buf >>= 32;
-          fill -= 32;
-          ++w;
-        }
-      }
-    }
-    if (fill > 0) atomicOr(&acc[w], (uint32_t)buf);
-  }
+  if (m > 0) pack_codes(acc, tab, q, m, start + total - incl);
   __syncthreads();
   return total;
 }
@@ -200,89 +215,226 @@ hufpack_kernel(const uint8_t* __restrict__ lits, long long n_lits,
   if (tid == 0) totals[s] = total;
 }
 
-// a piece of the rows: (first literal, n literals, row, pieces after it
-// in its row), the row's pieces consecutive in literal order
-struct Piece {
-  int off, n, row, later;
-};
+// The rows: one block per piece, in ticket order, and one word of
+// status per piece in a work buffer that outlives the call (see
+// lt_hufpack_rows).  A status is (call epoch << 33 | state << 31 |
+// value): state kAggregate carries the piece's own bit total, kInclusive
+// and kEdge the bits of the piece and every later piece of its row
+// (its inclusive total); kEdge also says that the piece's edge word is
+// in edges[].  An epoch other than the call's reads as "not yet".
+constexpr unsigned long long kAggregate = 1ull, kInclusive = 2ull,
+                             kEdge = 3ull;
 
-__device__ __forceinline__ Piece piece_at(const int32_t* pieces, int p,
-                                          int n_pieces, long long n_lits,
-                                          int n_rows) {
-  const Piece c = {pieces[4 * p], pieces[4 * p + 1], pieces[4 * p + 2],
-                   pieces[4 * p + 3]};
-  if (c.n < 0 || c.n > kMaxLits || c.off < 0 || (c.off & 15) ||
-      (long long)c.off + c.n > n_lits || c.row < 0 || c.row >= n_rows ||
-      c.later < 0 || c.later >= n_pieces - p ||
-      pieces[4 * (p + c.later) + 2] != c.row) {
-    __trap();                               // a piece outside the buffers
+// a status, relaxed but for kEdge, which releases the edge word this
+// thread wrote before it to whoever acquires the status
+__device__ __forceinline__ void publish(unsigned long long* status,
+                                        unsigned epoch,
+                                        unsigned long long state,
+                                        int value) {
+  const unsigned long long v =
+      (unsigned long long)epoch << 33 | state << 31 | (unsigned)value;
+  if (state == kEdge) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(status),
+                 "l"(v) : "memory");
+  } else {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(status),
+                 "l"(v) : "memory");
   }
-  return c;
 }
 
-// launch 1: each piece's bit total
-__global__ void __launch_bounds__(kThreads)
-hufbits_kernel(const uint8_t* __restrict__ lits, long long n_lits,
-               const int32_t* __restrict__ pieces,
-               const int32_t* __restrict__ table, int32_t* __restrict__ bits,
-               int n_pieces, int n_rows) {
-  __shared__ uint32_t tab[256];
-  __shared__ int sums[kWarps];
-  const int p = blockIdx.x;
-  const Piece c = piece_at(pieces, p, n_pieces, n_lits, n_rows);
-  load_table(tab, table);
-  uint4 q[2];
-  const int m = load_run(lits + c.off, c.n, q);
-  __syncthreads();
-  block_inclusive_sum(run_bits(tab, q, m), sums);
-  if (threadIdx.x == 0) bits[p] = sums[kWarps - 1];
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p, bool acquire) {
+  unsigned long long v;
+  if (acquire) {
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  } else {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  }
+  return v;
 }
 
-// launch 2: each piece packed at the bit total of the later pieces of
-// its row into the zeroed words (row_words a row); the row's first piece
-// writes the row's total
+// whether status v is this call's and at least state
+__device__ __forceinline__ bool status_is(unsigned long long v,
+                                          unsigned epoch,
+                                          unsigned long long state) {
+  return (unsigned)(v >> 33) == epoch && ((v >> 31) & 3ull) >= state;
+}
+
+// the status once it is this call's and at least state (acquired for
+// kEdge); spins, and traps after ~2^24 polls (seconds) rather than hang
+// the card on a status that never comes
+__device__ __forceinline__ unsigned long long await_status(
+    const unsigned long long* status, unsigned epoch,
+    unsigned long long state) {
+  for (int polls = 0; polls < (1 << 24); ++polls) {
+    const unsigned long long v = load_status(status, state == kEdge);
+    if (status_is(v, epoch, state)) return v;
+    __nanosleep(20);
+  }
+  __trap();
+}
+
+__device__ __forceinline__ int status_value(unsigned long long v) {
+  return (int)(v & 0x7fffffffull);
+}
+
+// sum of v over the warp
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the bits of word w that pieces k0, k0 + 1, ... of the row hold: the OR
+// of the edge words of the pieces whose inclusive total passes 32 w (a
+// piece's edge word is its part of the word its inclusive total ends in;
+// inclusive totals fall along the row, so the first piece that does not
+// pass 32 w ends the search)
+__device__ uint32_t gather_edges(const unsigned long long* status,
+                                 const uint32_t* edges, int k0, int M,
+                                 int w, unsigned epoch) {
+  uint32_t word = 0u;
+  for (int k = k0; k < M; ++k) {
+    if (status_value(await_status(status + k, epoch, kInclusive)) <= 32 * w) {
+      break;
+    }
+    await_status(status + k, epoch, kEdge);  // acquires the edge word
+    word |= *(const volatile uint32_t*)(edges + k);
+  }
+  return word;
+}
+
+// One launch packs every row (n_pad literal slots, n_lit[s] of them live)
+// into row_words words of its own.  A row has M pieces of at most
+// kMaxLits literals, and Z slices of zero_words words.  Each block takes
+// a ticket: ticket t < n_rows x M is piece M - 1 - t / n_rows of row t %
+// n_rows, so the pieces at the end of every row go first; the tickets
+// after the pieces' are the slices, row after row.  A block waits only on
+// blocks of lower tickets, which are running or done.  Piece m of a row:
+//  1. reads its literals once into registers, scans their code lengths
+//     and publishes its bit total t (kAggregate);
+//  2. its bit offset is the bits of the later pieces of its row: warp 0
+//     adds their aggregates, 32 at a time, up to the nearest inclusive
+//     total (single-pass decoupled look-back, run backwards as the stream
+//     is), and publishes off + t (kInclusive);
+//  3. packs its codes at bit off & 31 of its words in shared memory and
+//     publishes its edge word (kEdge): its bits in word (off + t) >> 5,
+//     the word it shares with the piece above;
+//  4. stores, coalesced and once each, the words whose top bit it holds,
+//     [off >> 5, (off + t) >> 5), its first word ORed with the edge words
+//     of the later pieces that reach into it; the row's first piece (m =
+//     0) also stores the word the row's total ends in (the edge words of
+//     the pieces that reach it) and the row's total.
+// Slice z of a row waits for the row's first piece's inclusive total (the
+// row's) and stores zeros over what of [z x zero_words, (z + 1) x
+// zero_words) lies past it, so that no one block writes a long row's tail
+// alone.  Every word of a row is stored by exactly one block, with no
+// memset and no atomic on the words.
+//   For tools/profile_torch_hufrows.py only, the kernel builds with
+// LT_VARIANT_NO_LENGTHS (each literal taken as 5 bits, no table lookup
+// in the scan) or LT_VARIANT_NO_PACK (no code packed) defined; each
+// removes one part of the work and computes wrong words.
 __global__ void __launch_bounds__(kThreads)
-hufrows_kernel(const uint8_t* __restrict__ lits, long long n_lits,
-               const int32_t* __restrict__ pieces,
-               const int32_t* __restrict__ table,
-               const int32_t* __restrict__ bits, uint32_t* __restrict__ words,
-               int32_t* __restrict__ totals, int n_pieces, int n_rows,
-               int row_words) {
+hufrows_kernel(const uint8_t* __restrict__ lits,
+               const int32_t* __restrict__ n_lit,
+               const int32_t* __restrict__ table, uint32_t* __restrict__ words,
+               int32_t* __restrict__ totals, unsigned* __restrict__ ticket,
+               unsigned long long* __restrict__ status,
+               uint32_t* __restrict__ edges, int n_rows, int n_pad,
+               int row_words, int zero_words, unsigned epoch,
+               unsigned base) {
   __shared__ uint32_t tab[256];
   __shared__ uint32_t acc[kMaxWords];
   __shared__ int sums[kWarps];
-  __shared__ int start_s;
-  const int p = blockIdx.x, tid = threadIdx.x;
-  const Piece c = piece_at(pieces, p, n_pieces, n_lits, n_rows);
+  __shared__ int ticket_s, off_s;
+  __shared__ uint32_t first_s, top_s;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int M = max(1, (n_pad + kMaxLits - 1) / kMaxLits);
+  const int Z = (row_words + zero_words - 1) / zero_words;
+  if (tid == 0) ticket_s = (int)(atomicAdd(ticket, 1u) - base);
   load_table(tab, table);
-  for (int i = tid; i < words_for(c.n); i += kThreads) acc[i] = 0u;
-  if (tid < 32) {                           // bits of the later pieces
-    int later = 0;
-    for (int j = 1 + tid; j <= c.later; j += 32) later += bits[p + j];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      later += __shfl_down_sync(0xffffffffu, later, o);
+  __syncthreads();                          // tab and the ticket ready
+  const int t = ticket_s;
+  if (t < 0 || t >= n_rows * (M + Z)) __trap();  // another call's ticket
+  if (t >= n_rows * M) {                    // slice z of row s's zeros
+    const int s = (t - n_rows * M) / Z, z = (t - n_rows * M) % Z;
+    if (tid == 0) {
+      off_s = status_value(
+          await_status(status + (long long)s * M, epoch, kInclusive));
     }
-    if (tid == 0) start_s = later;
+    __syncthreads();
+    uint32_t* const out = words + (long long)s * row_words;
+    const int end = min(row_words, (z + 1) * zero_words);
+    for (int i = max(z * zero_words, (off_s + 31) >> 5) + tid; i < end;
+         i += kThreads) {
+      out[i] = 0u;
+    }
+    return;
   }
+  const int m = M - 1 - t / n_rows, s = t % n_rows;
+  const int first = m * kMaxLits;
+  const int n = min(max(min(max(n_lit[s], 0), n_pad) - first, 0), kMaxLits);
+  unsigned long long* const st = status + (long long)s * M;
+  uint32_t* const ed = edges + (long long)s * M;
+  for (int i = tid; i < words_for(n); i += kThreads) acc[i] = 0u;
   uint4 q[2];
-  const int m = load_run(lits + c.off, c.n, q);
-  __syncthreads();                          // tab, acc and start ready
-  const int start = start_s, sh = start & 31;
-  const int total = pack_piece(acc, sums, tab, q, m, sh);
-  const int count = (sh + total + 31) >> 5;  // words the piece touches
-  if ((start >> 5) + count > row_words) __trap();
-  uint32_t* out = words + (long long)c.row * row_words + (start >> 5);
-  for (int i = tid; i < count; i += kThreads) {
-    const uint32_t v = acc[i];
-    if (i == 0 || i == count - 1) {         // maybe a neighbour's too
-      if (v) atomicOr(&out[i], v);
-    } else {
-      out[i] = v;
+  const int r = load_run(lits + (long long)s * n_pad + first, n, q);
+#ifdef LT_VARIANT_NO_LENGTHS
+  const int incl_run = block_inclusive_sum(5 * r, sums);
+#else
+  const int incl_run = block_inclusive_sum(run_bits(tab, q, r), sums);
+#endif
+  const int bits = sums[kWarps - 1];
+  if (tid < 32) {                           // 1 and 2
+    if (tid == 0) publish(st + m, epoch, kAggregate, bits);
+    int off = 0;
+    for (int k0 = m + 1; k0 < M; k0 += 32) {
+      const int k = k0 + lane;
+      int v = 0;
+      bool inclusive = true;                // past the row: nothing later
+      if (k < M) {
+        const unsigned long long x = await_status(st + k, epoch, kAggregate);
+        v = status_value(x);
+        inclusive = status_is(x, epoch, kInclusive);
+      }
+      const unsigned found = __ballot_sync(0xffffffffu, inclusive);
+      if (found) {                          // the nearest inclusive total
+        off += warp_sum(lane < __ffs(found) ? v : 0);
+        break;
+      }
+      off += warp_sum(v);
+    }
+    if (tid == 0) {
+      off_s = off;
+      publish(st + m, epoch, kInclusive, off + bits);
     }
   }
-  if (tid == 0 && (p == 0 || pieces[4 * (p - 1) + 2] != c.row)) {
-    totals[c.row] = start + total;
+  __syncthreads();                          // acc zeroed, off ready
+  const int off = off_s, incl = off + bits;
+  const int w0 = off >> 5, w1 = incl >> 5;
+#ifndef LT_VARIANT_NO_PACK
+  if (r > 0) pack_codes(acc, tab, q, r, (off & 31) + bits - incl_run);
+#endif
+  __syncthreads();                          // 3
+  if (tid == 0) {
+    ed[m] = acc[w1 - w0];
+    publish(st + m, epoch, kEdge, incl);    // releases it
+    first_s = (off & 31) && w0 < w1
+                  ? gather_edges(st, ed, m + 1, M, w0, epoch) : 0u;
+    top_s = m == 0 && (incl & 31)
+                ? acc[w1 - w0] | gather_edges(st, ed, 1, M, w1, epoch) : 0u;
+  }
+  __syncthreads();                          // 4
+  uint32_t* const out = words + (long long)s * row_words;
+  for (int i = tid; i < w1 - w0; i += kThreads) {
+    out[w0 + i] = i == 0 ? acc[0] | first_s : acc[i];
+  }
+  if (m == 0 && tid == 0) {
+    if (w1 >= row_words) __trap();          // a row past its words
+    if (incl & 31) out[w1] = top_s;
+    totals[s] = incl;
   }
 }
 
@@ -307,33 +459,32 @@ extern "C" int lt_hufpack(const void* lits, long long n_lits,
   return (int)cudaGetLastError();
 }
 
-// lits (n_lits,) u8, the rows end to end, every piece at a 16-byte
-// offset; pieces (n_pieces, 4) i32 = (literal offset, n literals, row,
-// pieces after it in its row), every row's pieces consecutive in literal
-// order and every row with at least one; table (256,) i32 = val | len <<
-// 16; bits (n_pieces,) i32 scratch -> words (n_rows, row_words) u32,
-// zeroed here and then packed, totals (n_rows,) i32
-extern "C" int lt_hufpack_rows(const void* lits, long long n_lits,
-                               const void* pieces, const void* table,
-                               void* bits, void* words, void* totals,
-                               int n_pieces, int n_rows, int row_words,
-                               void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (n_rows > 0) {
-    const cudaError_t e = cudaMemsetAsync(
-        words, 0, (size_t)n_rows * (size_t)row_words * sizeof(uint32_t), st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (n_pieces > 0) {
-    hufbits_kernel<<<(unsigned)n_pieces, kThreads, 0, st>>>(
-        (const uint8_t*)lits, n_lits, (const int32_t*)pieces,
-        (const int32_t*)table, (int32_t*)bits, n_pieces, n_rows);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    hufrows_kernel<<<(unsigned)n_pieces, kThreads, 0, st>>>(
-        (const uint8_t*)lits, n_lits, (const int32_t*)pieces,
-        (const int32_t*)table, (const int32_t*)bits, (uint32_t*)words,
-        (int32_t*)totals, n_pieces, n_rows, row_words);
+// lits (n_rows, n_pad) u8, 16-byte aligned, n_pad a positive multiple
+// of 16; n_lit (n_rows,) i32 (clamped to [0, n_pad]); table (256,) i32 =
+// val | len << 16; work: a buffer of 8 + 12 x n_rows x M bytes (M =
+// ceil(n_pad / kMaxLits)), zeroed once when it is made and kept across
+// calls on one stream: its first word is the ticket counter, then the
+// status words and the edge words of the pieces; zero_words: the words of
+// a slice of a row's zeros; the call takes the tickets base to base +
+// n_rows x (M + ceil(row_words / zero_words)), one block each; epoch: the
+// call's number on this buffer, nonzero, below 2^31 and other than that
+// of the calls that last wrote its statuses -> words (n_rows, row_words)
+// u32, totals (n_rows,) i32
+extern "C" int lt_hufpack_rows(const void* lits, const void* n_lit,
+                               const void* table, void* words, void* totals,
+                               void* work, int n_rows, int n_pad,
+                               int row_words, int zero_words, unsigned epoch,
+                               unsigned base, void* stream) {
+  if (n_rows > 0 && n_pad > 0 && zero_words > 0) {
+    const long long M = (n_pad + kMaxLits - 1) / kMaxLits;
+    const long long Z = (row_words + zero_words - 1) / zero_words;
+    unsigned long long* status = (unsigned long long*)work + 1;
+    hufrows_kernel<<<(unsigned)(n_rows * (M + Z)), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        (const uint8_t*)lits, (const int32_t*)n_lit, (const int32_t*)table,
+        (uint32_t*)words, (int32_t*)totals, (unsigned*)work, status,
+        (uint32_t*)(status + n_rows * M), n_rows, n_pad, row_words,
+        zero_words, epoch, base);
   }
   return (int)cudaGetLastError();
 }

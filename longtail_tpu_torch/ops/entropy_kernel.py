@@ -12,10 +12,11 @@ literals (its words live in one block's shared memory):
   launch (the zstd device tier's path; a 128 KiB zstd block's four
   streams are each one piece);
 - ``hufpack(lits, n_lit, table)``: rows of one table and any length, the
-  JAX package's ``(S, n_pad)`` interface, each row cut into pieces
-  (``row_pieces``) that two launches pack: one sums each piece's code
-  lengths, the next packs each piece at the bit total of the pieces after
-  it in its row.
+  JAX package's ``(S, n_pad)`` interface, each row cut into pieces of
+  ``MAX_STREAM_LITS`` literals that one launch packs: each piece at the
+  bit total of the pieces after it in its row, learnt from their
+  published totals within the launch (``hufpack_pieces_plain`` follows
+  the same scheme on ``row_pieces``).
 
 For a CPU tensor each wrapper computes its plain version
 (``hufpack_frame_plain``, ``hufpack_pieces_plain``); for a CUDA tensor it
@@ -29,6 +30,8 @@ its sentinel bit.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -211,45 +214,85 @@ def _check_rows(lits: torch.Tensor) -> None:
 
 def hufpack_pieces_plain(lits: torch.Tensor, n_lit: torch.Tensor,
                          table: torch.Tensor):
-    """Plain version of hufpack's kernels, on its piece list: each piece
-    packed alone (hufpack_plain), its bit offset the total of the pieces
-    after it in its row, its words shifted there and added, which equals
-    their OR (the bits are disjoint).  Same contract as hufpack_plain."""
+    """Plain version of hufpack's kernel, in its scheme, on the piece list
+    (row_pieces): each piece packed alone at bit 0 (hufpack_plain); its
+    bit offset the total of the pieces after it in its row, its inclusive
+    total that plus its own; its words moved to its shift, off & 31; its
+    edge word the part of it in word incl >> 5.  Piece m stores the words
+    [off >> 5, incl >> 5), its first ORed with the edge words of the later
+    pieces that reach into it; the row's first piece also the word the
+    row's total ends in (the edge words that reach it) and zeros past it.
+    Same contract as hufpack_plain."""
     _check_rows(lits)
     S, n_pad = lits.shape
     dev = lits.device
     pieces = row_pieces(n_lit.to(dev), n_pad).to(torch.int64)
-    P, L = pieces.shape[0], min(n_pad, MAX_STREAM_LITS)
-    Wp, W = words_per_stream(L), words_per_stream(n_pad)
+    M, L = pieces_per_row(n_pad), min(n_pad, MAX_STREAM_LITS)
+    W = words_per_stream(n_pad)
     flat = torch.nn.functional.pad(lits.reshape(-1), (0, L))
     at = pieces[:, :1] + torch.arange(L, device=dev)
     words, bits = hufpack_plain(flat[at], pieces[:, 1], table)
     words = words.to(torch.int64) & _M
-    bits = bits.to(torch.int64)
-    csum = torch.cumsum(bits, 0)
-    off = csum[torch.arange(P, device=dev) + pieces[:, 3]] - csum
-    sh = (off & 31)[:, None]
-    # a piece's last word is at most W - 1 of its row (+1 for its spill)
-    at = (pieces[:, 2:3] * (W + 1) + (off >> 5)[:, None]
-          + torch.arange(Wp, device=dev))
-    acc = torch.zeros((S * (W + 1),), dtype=torch.int64, device=dev)
-    acc.scatter_add_(0, at.reshape(-1), ((words << sh) & _M).reshape(-1))
-    acc.scatter_add_(0, (at + 1).reshape(-1),
-                     (words >> (32 - sh)).reshape(-1))
-    out = acc.view(S, W + 1)[:, :W]
-    totals = torch.zeros((S,), dtype=torch.int64, device=dev)
-    totals.index_add_(0, pieces[:, 2], bits)
+    bits = bits.to(torch.int64).view(S, M)
+    incl = bits.flip(1).cumsum(1).flip(1)     # its bits and the later's
+    off = incl - bits
+    sh = (off & 31).reshape(-1, 1)
+    moved = (torch.nn.functional.pad((words << sh) & _M, (0, 1))
+             | torch.nn.functional.pad(words >> (32 - sh), (1, 0)))
+    edge = moved.gather(1, ((incl >> 5) - (off >> 5)).reshape(-1, 1))
+    w0, w1 = (off >> 5).tolist(), (incl >> 5).tolist()
+    off, incl, edge = off.tolist(), incl.tolist(), edge.view(S, M).tolist()
+
+    def edges_into(s, k0, w):               # the later pieces' bits in w
+        word = 0
+        for k in range(k0, M):
+            if incl[s][k] <= 32 * w:
+                break
+            word |= edge[s][k]
+        return word
+
+    first = [[edges_into(s, m + 1, w0[s][m])
+              if off[s][m] & 31 and w0[s][m] < w1[s][m] else 0
+              for m in range(M)] for s in range(S)]
+    moved[:, 0] |= torch.tensor(first, dtype=torch.int64,
+                                device=dev).reshape(-1)
+    out = torch.zeros((S, W), dtype=torch.int64, device=dev)
+    for s in range(S):
+        for m in range(M):
+            out[s, w0[s][m]:w1[s][m]] = moved[s * M + m,
+                                              :w1[s][m] - w0[s][m]]
+        if incl[s][0] & 31:
+            out[s, w1[s][0]] = edge[s][0] | edges_into(s, 1, w1[s][0])
+    totals = torch.tensor([row[0] for row in incl], dtype=torch.int64,
+                          device=dev)
     return ((out - ((out & 0x80000000) << 1)).to(torch.int32),
             totals.to(torch.int32))
+
+
+# the rows kernel's work buffer of each (device, stream): [buffer, epoch
+# of its last call, ticket base of its next]; a call holds the lock from
+# taking its epoch and base to its launch, so calls queue in that order
+_ROWS_WORK: dict = {}
+_ROWS_LOCK = threading.Lock()
+_EPOCHS = (1 << 31) - 1                     # epochs 1 .. 2^31 - 1
+# words of a slice of a row's zeros, past its total, that one block of
+# the rows kernel stores (16 a thread)
+ZERO_WORDS = 16 * 1024
+
+
+def rows_work_words(n_pieces: int) -> int:
+    """int64 words of the rows kernel's work buffer for n_pieces pieces:
+    its ticket counter, a status word and a 32-bit edge word a piece."""
+    return 1 + n_pieces + -(-n_pieces // 2)
 
 
 def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
     """Kernel wrapper of the (S, n_pad) interface: same contract as
     hufpack_plain, for any positive n_pad that is a multiple of
-    LIT_ALIGN.  On a CUDA tensor: the piece list (row_pieces, a few small
-    ops), then one entry point that zeroes the words, sums each piece's
-    code lengths and packs each piece in place (a memset and two kernel
-    launches, counted once)."""
+    LIT_ALIGN.  On a CUDA tensor: one launch of the rows kernel, which
+    finds its pieces from its tickets, n_lit and n_pad, and nothing else
+    on the device (n_lit and table already int32 on lits' device; the
+    stream's work buffer is zeroed only when first made or grown)."""
     if lits.device.type == "cpu":
         return hufpack_pieces_plain(lits, n_lit, table)
     _check_rows(lits)
@@ -258,21 +301,35 @@ def hufpack(lits: torch.Tensor, n_lit: torch.Tensor, table: torch.Tensor):
     _kernels.require("lits", lits, torch.uint8, (S, n_pad), dev)
     if lits.data_ptr() % LIT_ALIGN:
         raise ValueError("lits: 16-byte aligned rows are needed")
+    n_lit = n_lit.to(device=dev, dtype=torch.int32).contiguous()
+    _kernels.require("n_lit", n_lit, torch.int32, (S,), dev)
     table = table.to(device=dev, dtype=torch.int32).contiguous()
     _kernels.require("table", table, torch.int32, (256,), dev)
-    pieces = row_pieces(n_lit.to(dev), n_pad)
-    P, W = pieces.shape[0], words_per_stream(n_pad)
-    bits = torch.empty((P,), dtype=torch.int32, device=dev)
+    P, W = S * pieces_per_row(n_pad), words_per_stream(n_pad)
+    tickets = P + S * -(-W // ZERO_WORDS)   # a block a piece and a slice
     words = torch.empty((S, W), dtype=torch.int32, device=dev)
     totals = torch.empty((S,), dtype=torch.int32, device=dev)
-    if S:
+    if not S:
+        return words, totals
+    stream = _kernels.stream_of(lits)
+    with _ROWS_LOCK:
+        key = (dev.index, stream)
+        work = _ROWS_WORK.get(key)
+        if work is None or work[0].numel() < rows_work_words(P):
+            work = _ROWS_WORK[key] = [torch.zeros(
+                (rows_work_words(P),), dtype=torch.int64, device=dev), 0, 0]
+        epoch = work[1] % _EPOCHS + 1
         with torch.cuda.device(dev):
             rc = _kernels.load().lt_hufpack_rows(
-                lits.data_ptr(), lits.numel(), pieces.data_ptr(),
-                table.data_ptr(), bits.data_ptr(), words.data_ptr(),
-                totals.data_ptr(), P, S, W, _kernels.stream_of(lits))
-        _kernels.check(rc, "lt_hufpack_rows")
-        _kernels.count_launch(hufpack)
+                lits.data_ptr(), n_lit.data_ptr(), table.data_ptr(),
+                words.data_ptr(), totals.data_ptr(), work[0].data_ptr(), S,
+                n_pad, W, ZERO_WORDS, epoch, work[2], stream)
+        if rc:                              # refused: the counter is as it was
+            del _ROWS_WORK[key]
+        else:
+            work[1], work[2] = epoch, (work[2] + tickets) & 0xFFFFFFFF
+    _kernels.check(rc, "lt_hufpack_rows")
+    _kernels.count_launch(hufpack)
     return words, totals
 
 

@@ -185,7 +185,7 @@ def _check_hufpack(lits, n_lit):
     # the Pallas kernel misaddresses rows whose 128-byte row count its row
     # tile does not divide, and its guard lets them through (ROADMAP
     # queue C): it is held only where its tiling holds
-    if n_pad >= jek.MIN_PALLAS_PAD and \
+    if n_pad % 128 == 0 and n_pad >= jek.MIN_PALLAS_PAD and \
             (n_pad // 128) % jek._row_tile(n_pad) == 0:
         wp, tp = jek.make_hufpack_rows_fn(n_pad, S)(
             lits.reshape(-1, 128), n_lit, jek.pack_code_table(cv, cl))
@@ -229,13 +229,14 @@ def test_hufpack_skewed_code_lengths():
 
 @pytest.mark.parametrize("n_pad,n_lit", [
     (65536, [65536, 65536 - 8191]), (2 * 32768 + 4096, [69632, 33000, 5]),
+    (32768 + 16, [32784, 0, 32771]),
 ])
 def test_hufpack_rows_longer_than_a_kernel_stream(n_pad, n_lit, monkeypatch):
-    """Rows longer than the longest stream a block of the kernels takes
-    (MAX_STREAM_LITS; bench.py's device_entropy packs rows of 128 KiB
-    through make_hufpack_rows_fn) go to the piece kernels' plain version
-    as one piece list of MAX_STREAM_LITS-literal pieces, never through the
-    frame pack, and the packed rows equal the JAX package's XLA scatter
+    """Rows longer than the longest stream a block of the frame kernel
+    takes (MAX_STREAM_LITS; bench.py's device_entropy packs rows of 128
+    KiB through make_hufpack_rows_fn) go to the rows kernel's plain
+    version as one piece list of MAX_STREAM_LITS-literal pieces, never
+    through the frame pack, and the packed rows equal the JAX package's XLA scatter
     oracle, its Pallas kernel in interpret mode (where its tiling holds:
     65536) and the host encoder, with 1-bit and 11-bit codes."""
     calls = []

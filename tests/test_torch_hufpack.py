@@ -67,18 +67,29 @@ def _reference_pieces(n_lit, n_pad):
     (2 * 32768 + 4096, [69632, 33000, 5], True),
     (131072, [131072, 131072 - 77], True),
     (4096, [0], False),
+    (L, [L, 0, 3, L - 1], False),
+    (L + 16, [L + 16, 0, L + 3, 16], True),
 ])
 def test_pieces_plain_matches_contract_xla_pallas_and_host(n_pad, n_lit,
                                                            skewed):
-    """Rows of one, several and no pieces' worth of literals: the plain
-    version of the piece kernels equals hufpack_plain, the XLA oracle,
-    the Pallas kernel in interpret mode (where its row tile divides the
-    rows: not at 69632) and the host encoder, bit for bit."""
+    """Rows of one, several and no pieces' worth of literals, rows of
+    n_lit 0, n_pad at one piece and one piece + 16: the plain version of
+    the rows kernel equals hufpack_plain, the XLA oracle, the Pallas
+    kernel in interpret mode (where its row tile divides the rows: not
+    at 69632) and the host encoder, bit for bit."""
     n_lit = np.array(n_lit, np.int32)
     lits, cv, cl = _rows(n_pad + len(n_lit), n_lit, n_pad, skewed)
     if skewed:
         assert cl.max() == zstd_frame.MAX_HUF_BITS and \
             cl[cl > 0].min() == 1
+    _check_all(lits, n_lit, cv, cl)
+
+
+def _check_all(lits, n_lit, cv, cl, host=True):
+    """The plain version of the rows kernel against hufpack_plain, the
+    XLA oracle, the Pallas kernel in interpret mode where its tiling
+    holds, and (host) the host encoder."""
+    n_pad = lits.shape[1]
     table = torch.from_numpy(entropy_kernel.pack_code_table(cv, cl))
     args = (torch.from_numpy(lits), torch.from_numpy(n_lit), table)
     words, totals = entropy_kernel.hufpack_pieces_plain(*args)
@@ -90,20 +101,72 @@ def test_pieces_plain_matches_contract_xla_pallas_and_host(n_pad, n_lit,
     wx, tx = jentropy._make_hufpack_xla(n_pad, 6, S)(lits, n_lit, cv, cl)
     np.testing.assert_array_equal(words, np.asarray(wx))
     np.testing.assert_array_equal(totals, np.asarray(tx))
-    if n_pad >= jek.MIN_PALLAS_PAD and \
+    if n_pad % 128 == 0 and n_pad >= jek.MIN_PALLAS_PAD and \
             (n_pad // 128) % jek._row_tile(n_pad) == 0:
         wp, tp = jek.make_hufpack_rows_fn(n_pad, S)(
             lits.reshape(-1, 128), n_lit, jek.pack_code_table(cv, cl))
         np.testing.assert_array_equal(totals, np.asarray(tp))
         np.testing.assert_array_equal(
             words, np.asarray(wp)[:, :words.shape[1]])
-    for s in range(S):
+    for s in range(S if host else 0):
         t = int(totals[s])
-        host = zstd_frame._huf_encode_stream(
+        want = zstd_frame._huf_encode_stream(
             lits[s, :n_lit[s]].tobytes(), cv.tolist(), cl.tolist())
         w = words[s].copy()
         w[t >> 5] |= np.uint32(1 << (t & 31))
-        assert w.tobytes()[: (t + 8) // 8] == host
+        assert w.tobytes()[: (t + 8) // 8] == want
+
+
+def _piece_bits(lits, n_lit, cl):
+    """Bits of each piece of each row: (S, M) numpy."""
+    S, n_pad = lits.shape
+    M = entropy_kernel.pieces_per_row(n_pad)
+    live = np.arange(n_pad)[None, :] < np.asarray(n_lit)[:, None]
+    per = np.where(live, cl[lits], 0)
+    per = np.pad(per, ((0, 0), (0, M * L - n_pad)))
+    return per.reshape(S, M, -1).sum(2)
+
+
+def test_a_last_piece_of_fewer_than_32_bits():
+    """Rows whose last non-empty piece holds a few literals, under 32
+    bits: its bits share a word with the piece above, which stores it."""
+    n_lit = np.array([2 * L + 3, L + 1, 3 * L], np.int32)
+    lits, cv, cl = _rows(21, n_lit, 3 * L, True)
+    bits = _piece_bits(lits, n_lit, cl)
+    assert 0 < bits[0, 2] < 32 and 0 < bits[1, 1] < 32
+    _check_all(lits, n_lit, cv, cl)
+
+
+def test_pieces_of_zero_bits_share_one_word():
+    """0-bit codes (pack_code_table takes them): whole pieces of no bits
+    between a few bits at each end of a row, so four pieces' bits meet in
+    one word, and a row of no bits at all."""
+    n_pad = 4 * L
+    n_lit = np.array([3 * L + 5, n_pad, 2 * L], np.int32)
+    rng = np.random.default_rng(3)
+    lits = np.zeros((3, n_pad), np.uint8)
+    lits[:, :4] = rng.integers(1, 4, (3, 4))
+    lits[:2, 3 * L:3 * L + 5] = rng.integers(1, 4, (2, 5))
+    lits[2] = 0
+    cv = np.zeros(256, np.int32)
+    cl = np.zeros(256, np.int32)
+    cv[1:4], cl[1:4] = [0, 2, 3], [1, 2, 2]
+    bits = _piece_bits(lits, n_lit, cl)
+    assert bits[0, 1] == bits[0, 2] == 0 and 0 < bits[0].sum() < 32
+    assert not bits[2].any()
+    _check_all(lits, n_lit, cv, cl)
+
+
+def test_rows_of_more_than_16_pieces():
+    """17 pieces a row, past the 16 blocks a thread-block cluster could
+    hold, one row's last non-empty piece holding 2 literals: equal to
+    hufpack_plain and the XLA oracle (the host encoder takes seconds a
+    row here)."""
+    n_pad = 16 * L + 16
+    n_lit = np.array([n_pad - 7, 16 * L + 2 - L], np.int32)
+    lits, cv, cl = _rows(17, n_lit, n_pad, True)
+    assert entropy_kernel.pieces_per_row(n_pad) == 17
+    _check_all(lits, n_lit, cv, cl, host=False)
 
 
 @pytest.mark.parametrize("n_pad,n_lit", [
