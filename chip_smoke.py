@@ -74,25 +74,38 @@ line):
    the sharded downsync reproduces the tree; prints the wall;
 10. pack: ``pack --device`` (zstd) of the BLAKE2 phase's smaller tree
    byte-identical to ``pack --device cpu``, and unpack reproduces it;
-11. stale target: a downsync of that archive over the unpacked tree with
-   one file changed, device="cuda", scans the target on the card and
-   reproduces the tree;
+11. stale target: one file of the unpacked tree changed, then brought
+   back three times, each run scanning the target on the card and
+   reproducing the tree: a downsync of that archive with
+   device="cuda", the CLI's ``unpack --device cuda`` of it, and the
+   CLI's ``downsync --device`` (bare) of the BLAKE2 store;
 12. device decode: decode_block_device on full 8 MiB LZ4 blocks of phase
    4's store, byte-equal to host decode; ms per block and GB/s of both;
 13. bench: the nine modes of bench_torch.py (the port's bench.py) called
    in-process on the card at small sizes, ``real`` over phase 4's tree;
    each returns exactly bench.py's keys for its mode plus ``device``,
    ``verified: true`` where bench.py has that key and a value above 0,
-   and prints its JSON line.
+   and prints its JSON line;
+14. graft entry: ``__graft_entry_torch__.entry()``'s step on the card
+   equal to its CPU run, one call launching scan, walk, pack and BLAKE3
+   once each and nothing else; the same step at phase 3's batch (2 x 32
+   MiB, one ragged, 32 KiB target) equal to its plain run on the CPU,
+   timed by CUDA events (the plain run by the host clock); and
+   ``dryrun_multichip`` over every card (the sharded steps in an NCCL
+   group, the mesh upsync, two multihost processes), each leg checked
+   and its launches logged.
 
-Phases 7-11 and each mode of phase 13 set every launch count to 0 before
-the path and read them after (phase 9's from its workers' last lines):
-scan, walk and BLAKE3 must launch on each of phases 7-11, the Huffman
-pack on the zstd pack; in phase 13 the kernels of each mode's path
-(scan, walk, BLAKE3 for the data plane, the mesh, real and downsync, the
-Huffman pack for chunk_hash_compress's zstd context, device_entropy, real
-and downsync, and its (S, n_pad) rows for device_entropy), pack and
-BLAKE2 never.
+Phases 7-11 and 14 and each mode of phase 13 set every launch count to 0
+before the path and read them after (phase 9's and phase 14's
+subprocesses from their own reports): scan, walk and BLAKE3 (BLAKE2 on
+phase 11's BLAKE2 downsync) must launch on each of phases 7-11 and each
+leg of phase 14's dry run, the Huffman pack on the zstd pack; in phase
+13 the kernels of each mode's path (scan, walk, BLAKE3 for the data
+plane, the mesh, real and downsync, the Huffman pack for
+chunk_hash_compress's zstd context, device_entropy, real and downsync,
+and its (S, n_pad) rows for device_entropy), pack and BLAKE2 never.
+Pack launches in phase 14's entry() step and on no other path; the
+kernels line takes its count from there.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports no jax and nothing of the JAX
@@ -1346,13 +1359,16 @@ def pack_phase(src: str, tmp: str, wrappers: dict) -> tuple:
     return counts, las["cuda"], out
 
 
-def stale_phase(src: str, la: str, out: str, wrappers: dict) -> dict:
-    """Phase 11: change one file of the unpacked tree, downsync the
-    archive over it with device="cuda": the target scan runs on the
-    card, and the tree comes back."""
+def stale_phase(src: str, la: str, out: str, tmp: str,
+                wrappers: dict) -> dict:
+    """Phase 11: change one file of the unpacked tree and bring it back
+    three times, each time scanning the target on the card: a downsync of
+    the archive through api.downsync(device="cuda"), the CLI's ``unpack
+    --device cuda`` of the archive, and the CLI's ``downsync --device``
+    (bare) of phase 4's BLAKE2 store of the same tree."""
     import torch
 
-    from longtail_tpu_torch import api
+    from longtail_tpu_torch import api, cli
     from longtail_tpu_torch.stores.archiveblockstore import (
         ArchiveBlockStoreReader,
     )
@@ -1363,24 +1379,45 @@ def stale_phase(src: str, la: str, out: str, wrappers: dict) -> dict:
 
     files = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs]
     victim = max(files, key=os.path.getsize)
-    with open(victim, "r+b") as f:
-        f.seek(os.path.getsize(victim) // 2)
-        f.write(b"stale")
     fs = FSStorage()
     reader = ArchiveBlockStoreReader(fs, la)
-    reset(wrappers)
-    t0 = time.perf_counter()
-    api.downsync(CompressBlockStore(reader), fs, out,
-                 reader.archive.version_index, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k: w.LAUNCHES for k, w in wrappers.items()}
-    log(f"stale-target downsync (device cuda, {os.path.relpath(victim, out)}"
-        f" changed): {wall:.3f} s; launches {counts}; "
-        f"{same_tree(src, out)} files byte-identical")
-    require_launches("stale-target downsync", counts,
-                     ("scan", "walk", "blake3"))
-    return counts
+    runs = {  # name: (call, kernels the target scan must launch)
+        "api.downsync(device=\"cuda\")": (
+            lambda: api.downsync(CompressBlockStore(reader), fs, out,
+                                 reader.archive.version_index,
+                                 device="cuda"),
+            ("scan", "walk", "blake3")),
+        "cli unpack --device cuda": (
+            lambda: cli.main(["unpack", "--source-path", la,
+                              "--target-path", out, "--device", "cuda"]),
+            ("scan", "walk", "blake3")),
+        "cli downsync --device": (
+            lambda: cli.main(["downsync", "--storage-uri",
+                              os.path.join(tmp, "store_blake2"),
+                              "--source-path",
+                              os.path.join(tmp, "blake2.lvi"),
+                              "--target-path", out, "--device"]),
+            ("scan", "walk", "blake2")),
+    }
+    out_counts = {}
+    for name, (call, need) in runs.items():
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            f.write(b"stale")
+        reset(wrappers)
+        t0 = time.perf_counter()
+        rc = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc not in (None, 0):
+            raise AssertionError(f"stale target, {name}: exited {rc}")
+        counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+        log(f"stale target, {name} ({os.path.relpath(victim, out)} "
+            f"changed): {wall:.3f} s; launches {counts}; "
+            f"{same_tree(src, out)} files byte-identical")
+        require_launches(f"stale target, {name}", counts, need)
+        out_counts[name] = counts
+    return out_counts
 
 
 def decode_phase(tmp: str) -> None:
@@ -1504,6 +1541,77 @@ def bench_phase(src: str, wrappers: dict) -> dict:
             raise AssertionError(f"bench {mode} launched pack or BLAKE2")
         out[mode] = counts
     return out
+
+
+def graft_phase(seed: int, smi: str, wrappers: dict) -> dict:
+    """Phase 14: __graft_entry_torch__.py on the card.  entry()'s step
+    equals its CPU run exactly and one call launches scan, walk, pack and
+    BLAKE3 once each and nothing else; the same step at the main path's
+    geometry (one 64 MiB batch of 2 x 32 MiB parts, one ragged, 32 KiB
+    target) equals its plain run on the CPU, both timed; and
+    dryrun_multichip over every card passes, each leg launching scan,
+    walk and BLAKE3.  Returns the launches of one entry() call."""
+    import torch
+
+    import __graft_entry_torch__ as graft
+    from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
+
+    fn, args = graft.entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    reset(wrappers)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+    cpu_fn, cpu_args = graft.entry(device="cpu")
+    err = max_abs_err([g.cpu() for g in got], cpu_fn(*cpu_args))
+    log(f"graft entry(): 8 x 16 KiB, lane 0 {int(got[1][0])} chunks in "
+        f"{got[2].numel()} slots; max_abs_err against entry(device=\"cpu\")"
+        f" {err}; launches of one call {counts}")
+    if err:
+        raise AssertionError("entry() on the card differs from its CPU run")
+    once = {"scan", "walk", "pack", "blake3"}
+    if any(counts[k] != (1 if k in once else 0) for k in counts):
+        raise AssertionError("one entry() call must launch scan, walk, "
+                             "pack and BLAKE3 once each and nothing else")
+
+    P = 32768 * 1024
+    flat = structured(np.random.default_rng(seed), 2 * P)
+    lengths = np.array([P, P - 12345 * 7], np.int32)
+    flat[P + lengths[1]:] = 0
+    cfg = ChunkerConfig.from_target(32768)
+    batch = torch.from_numpy(flat).to("cuda")
+    lens = torch.from_numpy(lengths).to("cuda")
+    step = graft._build_step(cfg, 2, P, torch.device("cuda"))
+    plain = graft._build_step(cfg, 2, P, torch.device("cpu"))
+    got = step(batch, lens)
+    t0 = time.perf_counter()
+    want = plain(torch.from_numpy(flat), torch.from_numpy(lengths))
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err([g.cpu() for g in got], want)
+    ms = cuda_ms(lambda: step(batch, lens), 20)
+    kernels_ms = device_ms(lambda: step(batch, lens), 20, (
+        "scan_kernel", "walk_kernel", "pack_kernel", "blake3_kernel"))
+    log(f"graft step, 2 x 32 MiB (one ragged), 32 KiB target: lane 0 "
+        f"{int(got[1][0])} chunks, {got[2].numel()} slots of "
+        f"{got[0].shape[1]}; max_abs_err against its plain run on the CPU "
+        f"{err}; {ms:.4f} ms a call by CUDA events on the card, of which "
+        f"its four kernels {kernels_ms:.4f} ms of device time; plain "
+        f"{plain_s:.3f} s on the host clock ({smi})")
+    if err:
+        raise AssertionError("the step differs from its plain run")
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    report = graft.dryrun_multichip(n)
+    log(f"graft dryrun_multichip({n}): every leg passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches: sharded (NCCL, {n} "
+        f"rank(s)) {report['sharded']}, mesh {report['mesh']}, two "
+        f"processes {report['multihost']}")
+    for leg in ("sharded", "mesh", "multihost"):
+        require_launches(f"dryrun_multichip {leg}", report[leg],
+                         ("scan", "walk", "blake3"))
+    return counts
 
 
 def main() -> int:
@@ -1642,8 +1750,6 @@ def main() -> int:
                 raise AssertionError(
                     f"the {name} path launched hufpack {counts['hufpack']} "
                     f"times for {summary['device_route']} frames")
-        for r in rows:                      # pack: 0, checked on each path
-            r["launches"] = launches.get(r["name"], 0)
 
         # 5. held to the host
         for name, hash_id, tag in (
@@ -1711,13 +1817,21 @@ def main() -> int:
         pipeline.DevicePartIndexer.plan_hash = plan_hash
         multihost_phase(src, tmp)
         _, la, unpacked = pack_phase(trees["src_b2"][0], tmp, wrappers)
-        stale_phase(trees["src_b2"][0], la, unpacked, wrappers)
+        stale_phase(trees["src_b2"][0], la, unpacked, tmp, wrappers)
         decode_phase(tmp)
 
         # 13. bench_torch.py's nine modes
         t0 = time.perf_counter()
         bench_phase(src, wrappers)
         log(f"bench phase: {time.perf_counter() - t0:.1f} s")
+
+        # 14. __graft_entry_torch__.py: the step and the distributed legs;
+        # the only path that launches pack
+        t0 = time.perf_counter()
+        launches["pack"] = graft_phase(args.seed, smi, wrappers)["pack"]
+        for r in rows:
+            r["launches"] = launches.get(r["name"], 0)
+        log(f"graft phase: {time.perf_counter() - t0:.1f} s")
     finally:
         pipeline.DevicePartIndexer.plan_hash = plan_hash
         shutil.rmtree(tmp, ignore_errors=True)

@@ -11,11 +11,12 @@ JAX package) and the match search of the LZ4 and zstd block codecs, with
 zstd's Huffman literal pack; they raise where there is no card.
 ``--device`` takes an optional value: ``cuda`` (the default, bare or
 absent), ``cpu`` (the kernels' plain versions on the CPU) or ``host``
-(the host path, the JAX package's default).  The other commands have no
-``--device``, as in the JAX CLI; ``downsync`` and ``unpack`` re-index an
-existing target on the card (``api.downsync``) and decode on the host.
-A downsync defaults ``--min-block-usage-percent`` to 0, as the reference
-C does.
+(the host path, the JAX package's default).  ``downsync`` and ``unpack``
+take the same ``--device``: it names where an existing target is
+re-indexed (``api.downsync``; a fresh folder touches no device), and
+they decode on the host.  ``validate``, ``ls`` and ``cp`` touch no device
+and take no ``--device``.  A downsync defaults
+``--min-block-usage-percent`` to 0, as the reference C does.
 """
 
 from __future__ import annotations
@@ -133,7 +134,7 @@ def cmd_downsync(args) -> int:
                  current_version_index=current,
                  retain_permissions=not args.no_retain_permissions,
                  min_block_usage_percent=args.min_block_usage_percent,
-                 workers=args.workers,
+                 workers=args.workers, device=_device(args),
                  progress=_progress("downsync"))
     print(f"downsync: materialized {vi.asset_count} assets at "
           f"{args.target_path}")
@@ -201,7 +202,8 @@ def cmd_unpack(args) -> int:
     n_assets = unpack_archive(
         storage, args.source_path, args.target_path.rstrip("/"),
         retain_permissions=not args.no_retain_permissions,
-        workers=args.workers, progress=_progress("unpack"))
+        workers=args.workers, device=_device(args),
+        progress=_progress("unpack"))
     print(f"unpack: materialized {n_assets} assets at {args.target_path}")
     return 0
 
@@ -220,6 +222,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference --mem-tracer, cmd/main.c:2959)")
     sub = p.add_subparsers(dest="command", required=True)
 
+    def device_flag(sp, what):
+        sp.add_argument("--device", nargs="?", const="cuda", default=None,
+                        choices=sorted(DEVICE_NAMES),
+                        help=f"where {what}: cuda (the default, bare "
+                             "or absent), cpu (the kernels' plain versions) "
+                             "or host (the host path)")
+
     def common_chunking(sp):
         sp.add_argument("--target-chunk-size", type=int, default=32768)
         sp.add_argument("--target-block-size", type=int, default=8388608)
@@ -229,12 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
         # reference default: zstd (cmd/main.c:2988)
         sp.add_argument("--compression-algorithm", default="zstd",
                         choices=sorted(COMPRESSION_NAMES))
-        sp.add_argument("--device", nargs="?", const="cuda", default=None,
-                        choices=sorted(DEVICE_NAMES),
-                        help="where the chunk+hash data plane and the "
-                             "block codecs run: cuda (the default, bare or "
-                             "absent), cpu (the kernels' plain versions) "
-                             "or host (the host path)")
+        device_flag(sp, "the chunk+hash data plane and the block codecs run")
 
     sp = sub.add_parser("upsync", help="index a folder and upload new blocks")
     sp.add_argument("--storage-uri", required=True)
@@ -254,6 +258,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--cache-path")
     sp.add_argument("--min-block-usage-percent", type=int, default=0)
     sp.add_argument("--no-retain-permissions", action="store_true")
+    device_flag(sp, "an existing target folder is re-indexed")
     sp.set_defaults(fn=cmd_downsync)
 
     sp = sub.add_parser("validate", help="check a store covers a version")
@@ -289,6 +294,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--source-path", required=True, help=".la file")
     sp.add_argument("--target-path", required=True, help="target folder")
     sp.add_argument("--no-retain-permissions", action="store_true")
+    device_flag(sp, "an existing target folder is re-indexed")
     sp.set_defaults(fn=cmd_unpack)
 
     return p

@@ -292,12 +292,13 @@ def test_cli_upsync_host_path_writes_the_hosts_index(tmp_path):
       "--target-path", "b.lvi", "--hash-algorithm", "meow"],
      RuntimeError),
     (["downsync", "--storage-uri", "s", "--source-path", "a.lvi",
-      "--target-path", "b", "--device"], SystemExit),
+      "--target-path", "b", "--device", "tpu"], SystemExit),
 ])
 def test_cli_device_outside_the_port_raises(tmp_path, monkeypatch, argv, exc):
     """The card is the default of upsync and pack, meow included (its
     block codecs run there): without a card they raise before any work;
-    downsync has no --device, as in the JAX CLI."""
+    downsync's --device takes only cuda, cpu and host (its card default
+    over a stale target: tests/test_torch_cli_device.py)."""
     monkeypatch.chdir(tmp_path)
     os.makedirs("a")
     with pytest.raises(exc):
@@ -518,8 +519,9 @@ def test_require_refuses_cpu_tensors():
 
 
 def _foreign(name: str) -> bool:
-    """A module the port must not load: jax, or the JAX package."""
-    return name.split(".")[0] in ("jax", "longtail_tpu")
+    """A module the port must not load: jax, the JAX package, or the
+    repository's tests."""
+    return name.split(".")[0] in ("jax", "longtail_tpu", "tests")
 
 
 def test_import_leaves_jax_out(tmp_path):
@@ -560,14 +562,18 @@ assert not bad, bad
 
 def test_no_jax_import_in_the_port():
     """No import statement of the port, of chip_smoke.py, of
-    bench_torch.py or of tools/profile_torch_codecs.py and
-    tools/profile_torch_stages.py names jax or the JAX package."""
+    bench_torch.py, of __graft_entry_torch__.py or of
+    tools/profile_torch_codecs.py, tools/profile_torch_stages.py and
+    tools/profile_torch_hufrows.py names jax, the JAX package or the
+    tests."""
     import ast
 
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "bench_torch.py"),
+             os.path.join(REPO, "__graft_entry_torch__.py"),
              os.path.join(REPO, "tools", "profile_torch_codecs.py"),
-             os.path.join(REPO, "tools", "profile_torch_stages.py")]
+             os.path.join(REPO, "tools", "profile_torch_stages.py"),
+             os.path.join(REPO, "tools", "profile_torch_hufrows.py")]
     for d, _, files in os.walk(os.path.join(REPO, "longtail_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     hits = []
