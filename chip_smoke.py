@@ -93,13 +93,33 @@ line):
    timed by CUDA events (the plain run by the host clock); and
    ``dryrun_multichip`` over every card (the sharded steps in an NCCL
    group, the mesh upsync, two multihost processes), each leg checked
-   and its launches logged.
+   and its launches logged;
+15. faults: each scenario on a thread joined with a 120 s limit, held to
+   the exception its CPU case in tests/test_torch_faults.py asserts:
+   ENOSPC from the store while the card codecs write blocks (LZ4, and
+   zstd with the Huffman pack); EIO from the read of a 160 MiB file's
+   3rd part with a batch on the card; a source file shorter than its
+   listing (StorageError "short read", mapped and read); a corrupt and a
+   truncated store.lsi, under which a card upsync finds every block by a
+   scan of the .lrb files and writes none again; a cancel
+   during a downsync whose stale target the card re-indexed; a missing
+   block file; two card upsyncs into one store at once through the .lsi
+   lock; then Python's thread count back to its value before the phase
+   within 5 s, and phase 4's zstd upsync again, writing phase 4's .lvi;
+16. large asset: one file of 4 GiB + 4097 bytes at the library defaults,
+   indexed on the host path, upsynced on the card with LZ4 (its .lvi
+   equal to the host path's, an asset size past 2^32), the source
+   deleted, downsynced into a fresh folder with the source's sha256;
+   each step's wall, GB/s and peak RSS; works under the checkout's
+   build/ (gitignored) and raises with less than 9 GiB free there.
 
-Phases 7-11 and 14 and each mode of phase 13 set every launch count to 0
-before the path and read them after (phase 9's and phase 14's
-subprocesses from their own reports): scan, walk and BLAKE3 (BLAKE2 on
-phase 11's BLAKE2 downsync) must launch on each of phases 7-11 and each
-leg of phase 14's dry run, the Huffman pack on the zstd pack; in phase
+Phases 7-11, 14 and 15, each mode of phase 13 and phase 16's upsync set
+every launch count to 0 before the path and read them after (phase 9's
+and phase 14's subprocesses from their own reports): scan, walk and
+BLAKE3 (BLAKE2 on phase 11's BLAKE2 downsync) must launch on each of
+phases 7-11, each leg of phase 14's dry run, phase 15's scenarios that
+reach the card and phase 16's upsync, the Huffman pack on the zstd pack
+and phase 15's zstd ENOSPC; in phase
 13 the kernels of each mode's path (scan, walk, BLAKE3 for the data
 plane, the mesh, real and downsync, the Huffman pack for
 chunk_hash_compress's zstd context, device_entropy, real and downsync,
@@ -1614,6 +1634,528 @@ def graft_phase(seed: int, smi: str, wrappers: dict) -> dict:
     return counts
 
 
+class WriteBudget:
+    """Delegating storage whose write paths raise ENOSPC after ``budget``
+    successful writes (tests/test_torch_faults.py's FailingStorage)."""
+
+    def __init__(self, inner, budget: int):
+        import threading
+
+        self._inner = inner
+        self._budget = budget
+        self._lock = threading.Lock()
+
+    def _spend(self):
+        import errno
+
+        from longtail_tpu_torch.stores.storage import StorageError
+
+        with self._lock:
+            if self._budget <= 0:
+                raise StorageError(errno.ENOSPC, "No space left on device",
+                                   "injected")
+            self._budget -= 1
+
+    def write(self, path, data, offset=0):
+        self._spend()
+        return self._inner.write(path, data, offset)
+
+    def write_ranges(self, path, size, ranges):
+        self._spend()
+        return self._inner.write_ranges(path, size, ranges)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class BadSource:
+    """Delegating storage over a source whose file ``name`` fails from
+    byte ``at`` on: "fail" raises EIO from a read that starts there,
+    "short" halves the bytes past it (a file truncated after its listing;
+    tests/test_torch_faults.py's ShortReads).  ``map_file`` maps through
+    a whole-file read, or refuses with ``no_map`` so the file is read
+    part by part."""
+
+    def __init__(self, inner, name: str, at: int, mode: str,
+                 no_map: bool):
+        self._inner = inner
+        self._name = name
+        self._at = at
+        self._mode = mode
+        self._no_map = no_map
+
+    def read(self, path, offset=0, size=None):
+        import errno
+
+        from longtail_tpu_torch.stores.storage import StorageError
+
+        hit = path.endswith(self._name)
+        if hit and self._mode == "fail" and offset >= self._at:
+            raise StorageError(errno.EIO, "injected read error", path)
+        data = self._inner.read(path, offset, size)
+        keep = max(0, self._at - offset)
+        if hit and self._mode == "short" and len(data) > keep:
+            data = data[:keep + (len(data) - keep) // 2]
+        return data
+
+    def map_file(self, path):
+        import errno
+
+        from longtail_tpu_torch.stores.storage import MappedFile, StorageError
+
+        if self._no_map:
+            raise StorageError(errno.ENOTSUP, "no map", path)
+        return MappedFile(memoryview(self.read(path)))
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def limited(name: str, fn, wrappers: dict, limit: float = 120.0) -> tuple:
+    """Run fn() on a thread joined with a timeout of ``limit`` s, raising
+    if it has not ended by then.  Returns ({"value": ...} or {"error":
+    exception}, wall s, launches), the launch counts set to 0 before."""
+    import threading
+
+    import torch
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - handed to the caller
+            out["error"] = e
+
+    reset(wrappers)
+    t0 = time.perf_counter()
+    t = threading.Thread(target=run, name=f"fault {name}", daemon=True)
+    t.start()
+    t.join(limit)
+    if t.is_alive():
+        raise AssertionError(f"fault scenario {name}: no end within "
+                             f"{limit:.0f} s")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: w.LAUNCHES for k, w in wrappers.items()}
+
+
+def expect(name: str, out: dict, types, err_no=None, text=None):
+    """The exception of a scenario: one of ``types``, with ``err_no`` and
+    ``text`` in its message where given; else raise."""
+    e = out.get("error")
+    if not isinstance(e, types) or (err_no is not None
+                                     and e.errno != err_no) or \
+            (text is not None and text not in str(e)):
+        raise AssertionError(f"fault scenario {name}: expected "
+                             f"{types} {err_no or ''} {text or ''}, got "
+                             f"{e!r}") from e
+    return e
+
+
+def succeeded(name: str, out: dict):
+    if "error" in out:
+        raise AssertionError(f"fault scenario {name} raised") \
+            from out["error"]
+    return out["value"]
+
+
+def stale(root: str) -> None:
+    """Change every file of a tree in its middle."""
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            n = os.path.getsize(p)
+            if n:
+                with open(p, "r+b") as fh:
+                    fh.seek(n // 2)
+                    fh.write(b"stale"[: n - n // 2])
+
+
+def fault_phase(tmp: str, src: str, src_small: str, seed: int,
+                wrappers: dict) -> None:
+    """Phase 15: the fault paths on the card, each scenario on a thread
+    joined with a 120 s limit and held to the exception its CPU case in
+    tests/test_torch_faults.py asserts: (a) ENOSPC from the store while
+    the card codecs write blocks, LZ4 and zstd (the Huffman pack); (b) a
+    StorageError from the read of the 3rd part of a 160 MiB file, an
+    earlier batch on the card (the reader thread); (c) a source file
+    shorter than its listing, read and mapped; (d) a corrupt, then a
+    truncated store.lsi, under which a card upsync finds every block by a
+    scan of the .lrb files and a downsync reproduces the tree;
+    (e) a cancel during a downsync whose stale target was re-indexed on
+    the card; (f) a missing block file under such a downsync; (g) two
+    card upsyncs into one store at once, through the .lsi lock.  Then
+    Python's thread count must be back to its value before the phase
+    within 5 s, and phase 4's zstd upsync, run again, must write phase
+    4's .lvi.  Logs each scenario's wall and launches."""
+    import errno
+    import threading
+
+    from longtail_tpu_torch import api, cli
+    from longtail_tpu_torch.core.indexing import (
+        create_version_index,
+        get_files_recursively,
+    )
+    from longtail_tpu_torch.formats import constants as C
+    from longtail_tpu_torch.formats.store_index import StoreIndex
+    from longtail_tpu_torch.stores.compressblockstore import (
+        CompressBlockStore,
+    )
+    from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
+    from longtail_tpu_torch.stores.storage import FSStorage, StorageError
+    from longtail_tpu_torch.utils.cancel import Cancelled, CancelToken
+
+    threads_before = threading.active_count()
+    fs = FSStorage()
+    lz4, zstd = C.COMPRESSION_TYPE_LZ4_DEFAULT, C.COMPRESSION_TYPE_ZSTD_DEFAULT
+    data = ("scan", "walk", "blake3")
+    base = os.path.join(tmp, "faults")
+    os.makedirs(base)
+
+    def card_store(path, storage=fs):
+        return CompressBlockStore(FSBlockStore(storage, path), device="cuda")
+
+    def record(name, wall, counts, what, need=()):
+        log(f"fault {name}: {what}; {wall:.3f} s; launches {counts}")
+        require_launches(f"fault {name}", counts, need)
+        if counts["pack"]:
+            raise AssertionError(f"fault scenario {name} launched pack")
+
+    # (a) ENOSPC while the card codecs write blocks
+    for codec, tag in (("lz4", lz4), ("zstd", zstd)):
+        name = f"(a) ENOSPC, {codec}"
+        out, wall, counts = limited(name, lambda: api.upsync(
+            fs, src_small, card_store(os.path.join(base, f"a_{codec}"),
+                                      WriteBudget(fs, 1)),
+            compression_tag=tag, device="cuda"), wrappers)
+        e = expect(name, out, StorageError, errno.ENOSPC)
+        record(name, wall, counts, f"{type(e).__name__} errno {e.errno}",
+               data + (("hufpack",) if codec == "zstd" else ()))
+
+    # (b) a read error on the 3rd part of a 160 MiB file
+    big = os.path.join(base, "b_src")
+    os.makedirs(big)
+    structured(np.random.default_rng(seed + 15), 160 << 20).tofile(
+        os.path.join(big, "big.bin"))
+    part = C.DEFAULT_TARGET_CHUNK_SIZE * 1024
+    name = "(b) read error, 3rd part"
+    out, wall, counts = limited(name, lambda: api.upsync(
+        BadSource(fs, "big.bin", 2 * part, "fail", no_map=True), big,
+        FSBlockStore(fs, os.path.join(base, "b_store")), device="cuda"),
+        wrappers)
+    e = expect(name, out, StorageError, errno.EIO)
+    record(name, wall, counts, f"{type(e).__name__} errno {e.errno} "
+           f"({e.filename})", ("scan", "walk"))
+
+    # (c) a source file shorter than its listing
+    short = os.path.join(base, "c_src")
+    os.makedirs(short)
+    rng = np.random.default_rng(seed + 16)
+    rng.integers(0, 256, 9 << 20, dtype=np.uint8).tofile(
+        os.path.join(short, "big.bin"))
+    rng.integers(0, 256, 5000, dtype=np.uint8).tofile(
+        os.path.join(short, "small.bin"))
+    for branch in ("map", "read"):
+        name = f"(c) short read, {branch}"
+        out, wall, counts = limited(name, lambda: api.upsync(
+            BadSource(fs, "big.bin", 3 << 20, "short",
+                      no_map=branch == "read"), short,
+            FSBlockStore(fs, os.path.join(base, f"c_{branch}")),
+            device="cuda"), wrappers)
+        e = expect(name, out, StorageError, errno.EIO, "short read")
+        record(name, wall, counts, f"{type(e).__name__}: {e}")
+
+    # (d) a damaged store.lsi: a card upsync finds the blocks by a scan
+    store_d = os.path.join(base, "d_store")
+    vi0, _ = api.upsync(fs, src_small, card_store(store_d),
+                        compression_tag=lz4, device="cuda")
+    blocks = lrb_set(store_d)
+    lsi = os.path.join(store_d, "store.lsi")
+    blob = open(lsi, "rb").read()
+    for damage in ("corrupt", "truncated"):
+        with open(lsi, "wb") as f:
+            f.write(b"\xde\xad\xbe\xef" * 64 if damage == "corrupt"
+                    else blob[: len(blob) // 2])
+        name = f"(d) {damage} store.lsi"
+        out, wall, counts = limited(name, lambda: api.upsync(
+            fs, src_small, card_store(store_d), compression_tag=lz4,
+            device="cuda"), wrappers)
+        vi, vsi = succeeded(name, out)
+        covered = set(int(h) for h in vsi.chunk_hashes)
+        if vi.to_bytes() != vi0.to_bytes() or lrb_set(store_d) != blocks \
+                or any(int(h) not in covered for h in vi.chunk_hashes):
+            raise AssertionError(f"fault scenario {name}: the scan did not "
+                                 "find every block")
+        out_dir = os.path.join(base, f"d_{damage}")
+        api.downsync(CompressBlockStore(FSBlockStore(fs, store_d)), fs,
+                     out_dir, vi)
+        record(name, wall, counts, f"found by a scan: .lvi as before, "
+               f"{len(blocks)} blocks, none written again; a downsync "
+               f"through it: {same_tree(src_small, out_dir)} files "
+               "byte-identical", data)
+    with open(lsi, "wb") as f:
+        f.write(blob)
+
+    # (e) a cancel during a downsync whose stale target the card re-indexed
+    target = os.path.join(base, "e_target")
+    api.downsync(CompressBlockStore(FSBlockStore(fs, store_d)), fs, target,
+                 vi0)
+    stale(target)
+    token = CancelToken()
+
+    def cancelling(done, total):
+        token.cancel()
+
+    name = "(e) cancel, stale target"
+    out, wall, counts = limited(name, lambda: api.downsync(
+        CompressBlockStore(FSBlockStore(fs, store_d)), fs, target, vi0,
+        workers=1, cancel_token=token, progress=cancelling,
+        device="cuda"), wrappers)
+    e = expect(name, out, Cancelled)
+    record(name, wall, counts, type(e).__name__, data)
+    api.downsync(CompressBlockStore(FSBlockStore(fs, store_d)), fs, target,
+                 vi0, device="cuda")
+    log(f"fault {name}: a downsync after it restores the tree, "
+        f"{same_tree(src_small, target)} files byte-identical")
+
+    # (f) a missing block file under a downsync over a stale target
+    store_f = os.path.join(base, "f_store")
+    shutil.copytree(store_d, store_f)
+    victim = sorted(os.path.join(d, f) for d, _, fs_ in os.walk(store_f)
+                    for f in fs_ if f.endswith(".lrb"))[0]
+    os.remove(victim)
+    stale(target)
+    name = "(f) missing block file"
+    out, wall, counts = limited(name, lambda: api.downsync(
+        CompressBlockStore(FSBlockStore(fs, store_f)), fs, target, vi0,
+        device="cuda"), wrappers)
+    e = expect(name, out, (StorageError, FileNotFoundError, KeyError))
+    record(name, wall, counts, f"{type(e).__name__} errno "
+           f"{getattr(e, 'errno', None)} ({os.path.basename(victim)} "
+           "removed)", data)
+
+    # (g) two card upsyncs into one store at once
+    other = os.path.join(base, "g_src")
+    make_tree(other, 32 << 20, seed + 17)
+    store_g = os.path.join(base, "g_store")
+
+    def both():
+        vis, errs = {}, []
+
+        def one(root):
+            try:
+                vis[root] = api.upsync(fs, root, card_store(store_g),
+                                       compression_tag=lz4,
+                                       device="cuda")[0]
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=one, args=(r,))
+              for r in (src_small, other)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            raise errs[0]
+        return vis
+
+    name = "(g) two upsyncs, one store"
+    out, wall, counts = limited(name, both, wrappers)
+    vis = succeeded(name, out)
+    infos = get_files_recursively(fs, other)
+    host = create_version_index(
+        fs, other, infos, C.HASH_TYPE_BLAKE3, C.DEFAULT_TARGET_CHUNK_SIZE,
+        asset_tags=np.full(infos.count, lz4, np.uint32), device=None)
+    if vis[src_small].to_bytes() != vi0.to_bytes() or \
+            vis[other].to_bytes() != host.to_bytes():
+        raise AssertionError(f"fault scenario {name}: an .lvi differs from "
+                             "its host path's")
+    on_disk = set(int(h) for h in StoreIndex.from_bytes(open(
+        os.path.join(store_g, "store.lsi"), "rb").read()).chunk_hashes)
+    cold = CompressBlockStore(FSBlockStore(fs, store_g))
+    for k, (root, vi) in enumerate(vis.items()):
+        if any(int(h) not in on_disk for h in vi.chunk_hashes):
+            raise AssertionError(f"fault scenario {name}: chunks lost in "
+                                 "the .lsi merge")
+        out_dir = os.path.join(base, f"g_out{k}")
+        api.downsync(cold, fs, out_dir, vi)
+        same_tree(root, out_dir)
+    record(name, wall, counts, "both .lvi equal their host path's, the "
+           "merged store.lsi holds both, both trees come back from a cold "
+           "store", data)
+
+    deadline = time.monotonic() + 5
+    while threading.active_count() > threads_before and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = threading.active_count()
+    log(f"faults: Python threads {left} after the scenarios, "
+        f"{threads_before} before")
+    if left > threads_before:
+        raise AssertionError("threads left behind by the fault scenarios: "
+                             f"{[t.name for t in threading.enumerate()]}")
+
+    t0 = time.perf_counter()
+    rc = cli.main(["upsync", "--storage-uri",
+                   os.path.join(base, "store_zstd_again"), "--source-path",
+                   src, "--target-path", os.path.join(base, "again.lvi")])
+    wall = time.perf_counter() - t0
+    again = open(os.path.join(base, "again.lvi"), "rb").read()
+    if rc != 0 or again != open(os.path.join(tmp, "zstd.lvi"), "rb").read():
+        raise AssertionError("after the faults, phase 4's zstd upsync "
+                             "wrote another .lvi")
+    log(f"faults: phase 4's zstd upsync again: {wall:.3f} s, .lvi "
+        "byte-identical to phase 4's")
+    shutil.rmtree(base)
+
+
+class RssPeak:
+    """The peak resident set of this process while a ``with`` block runs,
+    sampled from /proc/self/statm every 20 ms on a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            with open("/proc/self/statm") as f:
+                self.peak = max(self.peak, int(f.read().split()[1]) * page)
+            if self._stop.wait(0.02):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    @property
+    def gib(self) -> float:
+        return self.peak / (1 << 30)
+
+
+def large_asset_phase(work: str, smi: str, wrappers: dict) -> None:
+    """Phase 16: one asset of 4 GiB + 4097 bytes (tests/
+    test_reference_depth.py's offset-mixed 1 MiB tile, hashed with sha256
+    as it is written) at the library defaults: indexed on the host path,
+    upsynced on the card with LZ4 (CompressBlockStore(device="cuda")),
+    whose .lvi must equal the host path's with an asset size past 2^32;
+    the source deleted, then downsynced into a fresh folder, whose sha256
+    must equal the source's.  Works under ``work`` and needs 9 GiB free
+    there (the source and the store, then the store and the target);
+    raises without it.  Logs each step's wall, GB/s and peak RSS and the
+    upsync's launches."""
+    import torch
+
+    from longtail_tpu_torch import api
+    from longtail_tpu_torch.core.indexing import (
+        create_version_index,
+        get_files_recursively,
+    )
+    from longtail_tpu_torch.formats import constants as C
+    from longtail_tpu_torch.formats.version_index import VersionIndex
+    from longtail_tpu_torch.stores.compressblockstore import (
+        CompressBlockStore,
+    )
+    from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
+    from longtail_tpu_torch.stores.storage import FSStorage
+
+    size = (4 << 30) + 4097
+    os.makedirs(work, exist_ok=True)
+    free = shutil.disk_usage(work).free
+    if free < 9 << 30:
+        raise AssertionError(f"phase 16 needs 9 GiB free under {work}; "
+                             f"{free / (1 << 30):.2f} GiB are")
+    root = tempfile.mkdtemp(prefix="lt_large_", dir=work)
+    try:
+        src = os.path.join(root, "src")
+        os.makedirs(src)
+        path = os.path.join(src, "huge.bin")
+        lz4 = C.COMPRESSION_TYPE_LZ4_DEFAULT
+        fs = FSStorage()
+
+        def step(name, t0, rss):
+            wall = time.perf_counter() - t0
+            log(f"large asset, {name}: {wall:.3f} s, "
+                f"{size / wall / 1e9:.3f} GB/s; peak RSS {rss.gib:.3f} GiB")
+
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            tile = np.arange(1 << 18, dtype=np.uint32)
+            want = hashlib.sha256()
+            with open(path, "wb") as f:
+                off = 0
+                while off < size:
+                    chunk = ((tile + np.uint32(off >> 20))
+                             ^ np.uint32(0xA5)).tobytes()[
+                                 : min(1 << 20, size - off)]
+                    f.write(chunk)
+                    want.update(chunk)
+                    off += len(chunk)
+        step("source written and hashed (sha256)", t0, rss)
+
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            infos = get_files_recursively(fs, src)
+            host = create_version_index(
+                fs, src, infos, C.HASH_TYPE_BLAKE3,
+                C.DEFAULT_TARGET_CHUNK_SIZE,
+                asset_tags=np.full(infos.count, lz4, np.uint32), workers=8,
+                device=None)
+        step("host index (device=None)", t0, rss)
+
+        store = os.path.join(root, "store")
+        reset(wrappers)
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            vi, _ = api.upsync(fs, src, CompressBlockStore(
+                FSBlockStore(fs, store), device="cuda"),
+                compression_tag=lz4, device="cuda")
+            torch.cuda.synchronize()
+        counts = {k: w.LAUNCHES for k, w in wrappers.items()}
+        step(f"upsync on the card, LZ4 ({vi.chunk_count} chunks; launches "
+             f"{counts})", t0, rss)
+        require_launches("large asset upsync", counts,
+                         ("scan", "walk", "blake3"))
+        if counts["pack"]:
+            raise AssertionError("the large asset's upsync launched pack")
+        if int(vi.asset_sizes.max()) != size or size <= 1 << 32:
+            raise AssertionError("large asset: the asset is not past 2^32 "
+                                 "bytes")
+        if vi.to_bytes() != host.to_bytes():
+            raise AssertionError("large asset: the card's .lvi differs "
+                                 "from the host path's")
+        log(f"large asset: .lvi byte-identical to the host path's, asset "
+            f"{size} bytes > 2^32 ({smi})")
+
+        os.remove(path)
+        out = os.path.join(root, "out")
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            api.downsync(CompressBlockStore(FSBlockStore(fs, store)), fs,
+                         out, VersionIndex.from_bytes(vi.to_bytes()))
+        step("downsync into a fresh folder", t0, rss)
+        t0 = time.perf_counter()
+        got = hashlib.sha256()
+        with open(os.path.join(out, "huge.bin"), "rb") as f:
+            while b := f.read(1 << 22):
+                got.update(b)
+        if got.hexdigest() != want.hexdigest():
+            raise AssertionError("large asset: the downsync's sha256 "
+                                 "differs from the source's")
+        log(f"large asset: downsync sha256 equal to the source's "
+            f"({got.hexdigest()[:16]}, {time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gib", type=float, default=1.0,
@@ -1832,6 +2374,17 @@ def main() -> int:
         for r in rows:
             r["launches"] = launches.get(r["name"], 0)
         log(f"graft phase: {time.perf_counter() - t0:.1f} s")
+
+        # 15. the fault paths on the card
+        t0 = time.perf_counter()
+        fault_phase(tmp, src, trees["src_b2"][0], args.seed, wrappers)
+        log(f"fault phase: {time.perf_counter() - t0:.1f} s")
+
+        # 16. one asset over 4 GiB on the card
+        t0 = time.perf_counter()
+        large_asset_phase(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "build"), smi, wrappers)
+        log(f"large asset phase: {time.perf_counter() - t0:.1f} s")
     finally:
         pipeline.DevicePartIndexer.plan_hash = plan_hash
         shutil.rmtree(tmp, ignore_errors=True)

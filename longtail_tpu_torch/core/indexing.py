@@ -28,6 +28,7 @@ device (``parallel/pipeline.py`` ``MeshPartIndexer``).
 from __future__ import annotations
 
 import dataclasses
+import errno
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -148,23 +149,33 @@ class ChunkedAssets:
 
 
 def _part_reader(storage, full_path: str, size: int):
-    """Returns read(pos, n) -> uint8 view of the file.
+    """Returns read(pos, n) -> uint8 view of n bytes of the file at pos.
 
     Files over 1 MiB go through map_file (zero-copy, the reference's mmap
     chunking path src/longtail.c:2130-2216); small files use plain reads
     so thousands of tiny assets don't pin thousands of mappings.  The
-    returned arrays keep the mapping alive via their buffer reference."""
-    from longtail_tpu_torch.stores.storage import map_or_read
+    returned arrays keep the mapping alive via their buffer reference.
+
+    A read or a mapped view that holds fewer than n bytes (the file
+    shrank after it was listed) raises StorageError naming the path, the
+    offset and the bytes wanted and got: an index of the bytes it did get
+    would record asset sizes that its chunk sizes do not sum to."""
+    from longtail_tpu_torch.stores.storage import StorageError, map_or_read
+
+    def checked(pos: int, n: int, buf) -> np.ndarray:
+        if len(buf) != n:
+            raise StorageError(
+                errno.EIO, f"short read at offset {pos}: wanted {n} bytes, "
+                f"got {len(buf)}", full_path)
+        return np.frombuffer(buf, dtype=np.uint8)
 
     if size >= (1 << 20):
         try:
             mf = map_or_read(storage, full_path)
-            return lambda pos, n: np.frombuffer(
-                mf.view[pos:pos + n], dtype=np.uint8)
+            return lambda pos, n: checked(pos, n, mf.view[pos:pos + n])
         except Exception:
             pass
-    return lambda pos, n: np.frombuffer(
-        storage.read(full_path, pos, n), dtype=np.uint8)
+    return lambda pos, n: checked(pos, n, storage.read(full_path, pos, n))
 
 
 def _chunk_one_asset(storage, root: str, path: str, size: int,

@@ -33,6 +33,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from collections import deque
@@ -73,27 +74,47 @@ def resolve_device(device) -> torch.device:
 
 def _prefetch(it: Iterable, depth: int) -> Iterator:
     """Pull from `it` on a background thread so file I/O overlaps device
-    compute."""
+    compute (depth 0: on the caller's thread).  Closing the generator
+    (its consumer gave up) stops the thread at its next put and joins it,
+    so no reader is left blocked on a full queue holding its parts."""
+    if not depth:
+        yield from it
+        return
     q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
     _END = object()
+
+    def put(x) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(x, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def worker():
         try:
             for x in it:
-                q.put(x)
-            q.put(_END)
+                if not put(x):
+                    return
+            put(_END)
         except BaseException as e:  # propagate into the consumer
-            q.put(e)
+            put(e)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        x = q.get()
-        if x is _END:
-            return
-        if isinstance(x, BaseException):
-            raise x
-        yield x
+    try:
+        while True:
+            x = q.get()
+            if x is _END:
+                return
+            if isinstance(x, BaseException):
+                raise x
+            yield x
+    finally:
+        stop.set()
+        t.join()
 
 
 # ---------------------------------------------------------------------------
@@ -325,21 +346,20 @@ class DevicePartIndexer:
         per part in submission order. Parts must be <= part_bytes long."""
         B = self.lanes
         depth = prefetch_depth if prefetch_depth is not None else 2 * B
-        src = _prefetch(tagged_parts, depth) if depth else iter(tagged_parts)
-
         stage1q: deque = deque()
         stage2q: deque = deque()
         batch: list = []
         d = self.queue_depth
-        for item in src:
-            batch.append(item)
-            if len(batch) == B:
-                stage1q.append(self.submit_host(batch))
-                batch = []
-                if len(stage1q) >= d:
-                    stage2q.append(self.plan_hash(stage1q.popleft()))
-                if len(stage2q) >= d:
-                    yield from self.retire(stage2q.popleft())
+        with contextlib.closing(_prefetch(tagged_parts, depth)) as src:
+            for item in src:
+                batch.append(item)
+                if len(batch) == B:
+                    stage1q.append(self.submit_host(batch))
+                    batch = []
+                    if len(stage1q) >= d:
+                        stage2q.append(self.plan_hash(stage1q.popleft()))
+                    if len(stage2q) >= d:
+                        yield from self.retire(stage2q.popleft())
         if batch:
             stage1q.append(self.submit_host(batch))
         while stage1q:
@@ -385,26 +405,25 @@ class MeshPartIndexer:
         n = len(self.indexers)
         B = self.indexers[0].lanes
         depth = prefetch_depth if prefetch_depth is not None else 2 * B * n
-        src = _prefetch(tagged_parts, depth) if depth else iter(tagged_parts)
-
         stage1q: deque = deque()   # (indexer, entry), FIFO = global order
         stage2q: deque = deque()
         batch: list = []
         bi = 0
         d = self.indexers[0].queue_depth * n
-        for item in src:
-            batch.append(item)
-            if len(batch) == B:
-                ix = self.indexers[bi % n]
-                stage1q.append((ix, ix.submit_host(batch)))
-                bi += 1
-                batch = []
-                if len(stage1q) >= d:
-                    ix, e = stage1q.popleft()
-                    stage2q.append((ix, ix.plan_hash(e)))
-                if len(stage2q) >= d:
-                    ix, e = stage2q.popleft()
-                    yield from ix.retire(e)
+        with contextlib.closing(_prefetch(tagged_parts, depth)) as src:
+            for item in src:
+                batch.append(item)
+                if len(batch) == B:
+                    ix = self.indexers[bi % n]
+                    stage1q.append((ix, ix.submit_host(batch)))
+                    bi += 1
+                    batch = []
+                    if len(stage1q) >= d:
+                        ix, e = stage1q.popleft()
+                        stage2q.append((ix, ix.plan_hash(e)))
+                    if len(stage2q) >= d:
+                        ix, e = stage2q.popleft()
+                        yield from ix.retire(e)
         if batch:
             ix = self.indexers[bi % n]
             stage1q.append((ix, ix.submit_host(batch)))
