@@ -37,6 +37,7 @@ from longtail_tpu_torch.formats.version_index import VersionIndex
 from longtail_tpu_torch.parallel.pipeline import resolve_device
 from longtail_tpu_torch.stores.storage import Storage
 from longtail_tpu_torch.utils import memtracer
+from longtail_tpu_torch.utils.monitor import span
 from longtail_tpu_torch.utils.progress import null_progress
 
 
@@ -58,27 +59,31 @@ def upsync(source_storage: Storage, source_root: str, block_store,
     index covering exactly this version's chunks (existing + newly written),
     suitable for --version-local-store-index workflows.
     """
-    if device is not None:
-        device = resolve_device(device)
-    file_infos = get_files_recursively(source_storage, source_root,
-                                       path_filter, workers=workers)
-    asset_tags = np.full(file_infos.count, compression_tag, dtype=np.uint32)
-    with memtracer.context("ChunkAssets"):
-        version_index = create_version_index(
-            source_storage, source_root, file_infos, hash_identifier,
-            target_chunk_size, asset_tags=asset_tags, workers=workers,
-            device=device, mesh=mesh, progress=progress)
+    with span("upsync") as s:
+        if device is not None:
+            device = resolve_device(device)
+        file_infos = get_files_recursively(source_storage, source_root,
+                                           path_filter, workers=workers)
+        s.n = int(file_infos.sizes.sum())
+        asset_tags = np.full(file_infos.count, compression_tag,
+                             dtype=np.uint32)
+        with memtracer.context("ChunkAssets"):
+            version_index = create_version_index(
+                source_storage, source_root, file_infos, hash_identifier,
+                target_chunk_size, asset_tags=asset_tags, workers=workers,
+                device=device, mesh=mesh, progress=progress)
 
-    existing = block_store.get_existing_content(
-        version_index.chunk_hashes, min_block_usage_percent)
-    missing = create_missing_content(
-        existing, version_index, target_block_size, max_chunks_per_block)
-    with memtracer.context("WriteContent"):
-        write_content(source_storage, block_store, missing, version_index,
-                      source_root, workers=workers, progress=progress)
-    block_store.flush()
-    version_store_index = store_algebra.merge_store_index(missing, existing)
-    return version_index, version_store_index
+        existing = block_store.get_existing_content(
+            version_index.chunk_hashes, min_block_usage_percent)
+        missing = create_missing_content(
+            existing, version_index, target_block_size, max_chunks_per_block)
+        with memtracer.context("WriteContent"):
+            write_content(source_storage, block_store, missing, version_index,
+                          source_root, workers=workers, progress=progress)
+        block_store.flush()
+        version_store_index = store_algebra.merge_store_index(missing,
+                                                              existing)
+        return version_index, version_store_index
 
 
 def downsync(block_store, target_storage: Storage, target_root: str,
@@ -91,37 +96,41 @@ def downsync(block_store, target_storage: Storage, target_root: str,
     """Materialize source_version_index at target_root, fetching only
     missing blocks (DownSync, cmd/main.c:1236).  An existing target is
     re-indexed on ``device`` (None: the host path)."""
-    if current_version_index is None and scan_target and \
-            target_storage.is_dir(target_root):
-        current_version_index = create_version_index(
-            target_storage, target_root,
-            hash_identifier=source_version_index.hash_identifier,
-            target_chunk_size=source_version_index.target_chunk_size,
-            workers=workers, device=device)
+    with span("downsync",
+              int(source_version_index.asset_sizes.sum())):
+        if current_version_index is None and scan_target and \
+                target_storage.is_dir(target_root):
+            current_version_index = create_version_index(
+                target_storage, target_root,
+                hash_identifier=source_version_index.hash_identifier,
+                target_chunk_size=source_version_index.target_chunk_size,
+                workers=workers, device=device)
 
-    if current_version_index is not None:
-        diff = create_version_diff(current_version_index, source_version_index)
-        if not diff.any_changes:
-            return
-        required = get_required_chunk_hashes(source_version_index, diff)
-    else:
-        diff = None
-        required = source_version_index.chunk_hashes
+        if current_version_index is not None:
+            diff = create_version_diff(current_version_index,
+                                       source_version_index)
+            if not diff.any_changes:
+                return
+            required = get_required_chunk_hashes(source_version_index, diff)
+        else:
+            diff = None
+            required = source_version_index.chunk_hashes
 
-    store_index = block_store.get_existing_content(
-        required, min_block_usage_percent)
-    if len(required) and store_index.block_count == 0 and \
-            min_block_usage_percent > 0:
-        # usage cutoff starved us of coverage; retry without it
-        store_index = block_store.get_existing_content(required, 0)
+        store_index = block_store.get_existing_content(
+            required, min_block_usage_percent)
+        if len(required) and store_index.block_count == 0 and \
+                min_block_usage_percent > 0:
+            # usage cutoff starved us of coverage; retry without it
+            store_index = block_store.get_existing_content(required, 0)
 
-    with memtracer.context("ChangeVersion"):
-        change_version(block_store, target_storage, source_version_index,
-                       store_index, target_root,
-                       source_version_index=current_version_index, diff=diff,
-                       retain_permissions_flag=retain_permissions,
-                       workers=workers, cancel_token=cancel_token,
-                       progress=progress)
+        with memtracer.context("ChangeVersion"):
+            change_version(block_store, target_storage, source_version_index,
+                           store_index, target_root,
+                           source_version_index=current_version_index,
+                           diff=diff,
+                           retain_permissions_flag=retain_permissions,
+                           workers=workers, cancel_token=cancel_token,
+                           progress=progress)
 
 
 def validate_version(block_store, version_index: VersionIndex):

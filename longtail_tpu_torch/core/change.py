@@ -26,7 +26,7 @@ from longtail_tpu_torch.formats.store_index import StoreIndex
 from longtail_tpu_torch.formats.version_index import VersionIndex
 from longtail_tpu_torch.stores.storage import Storage, StorageError, ensure_parent_dirs
 from longtail_tpu_torch.utils.cancel import check
-from longtail_tpu_torch.utils.monitor import get_monitor
+from longtail_tpu_torch.utils.monitor import get_monitor, span
 from longtail_tpu_torch.utils.progress import null_progress
 
 
@@ -147,158 +147,167 @@ def change_version(block_store, version_storage: Storage,
     zero-size-asset creation and file pre-sizing stay on every process
     (idempotent), cleanup and permission retention are the caller's
     responsibility to run once."""
-    target = target_version_index
-    if source_version_index is not None and diff is None:
-        diff = create_version_diff(source_version_index, target)
+    with span("change") as s:
+        target = target_version_index
+        if source_version_index is not None and diff is None:
+            diff = create_version_diff(source_version_index, target)
 
-    if diff is not None and source_version_index is not None:
-        clean_up_removed_assets(version_storage, source_version_index,
-                                diff, root)
-        write_assets = np.concatenate([
-            diff.target_added_asset_indexes,
-            diff.target_content_modified_asset_indexes]).astype(np.int64)
-    else:
-        write_assets = np.arange(target.asset_count, dtype=np.int64)
-
-    mon0 = get_monitor()
-    if mon0:
-        mon0.version_begin(target.asset_count, target.chunk_count)
-
-    block_store.preflight_get(store_index.block_hashes)
-
-    # non-block assets: directories and zero-size files (:8292); order is
-    # short-to-long path so parents exist first
-    ordered = sorted((int(a) for a in write_assets),
-                     key=lambda a: len(target.path(a)))
-    chunked_assets = []
-    for a in ordered:
-        check(cancel_token)
-        path = target.path(a)
-        full = _full_path(root, path.rstrip("/"))
-        if path.endswith("/"):
-            if not version_storage.is_dir(full):
-                ensure_parent_dirs(version_storage, full + "/x")
-                try:
-                    version_storage.create_dir(full)
-                except StorageError as e:
-                    if e.errno != errno.EEXIST:
-                        raise
-        elif int(target.asset_sizes[a]) == 0:
-            ensure_parent_dirs(version_storage, full)
-            version_storage.write(full, b"")
+        if diff is not None and source_version_index is not None:
+            clean_up_removed_assets(version_storage, source_version_index,
+                                    diff, root)
+            write_assets = np.concatenate([
+                diff.target_added_asset_indexes,
+                diff.target_content_modified_asset_indexes]).astype(np.int64)
         else:
-            chunked_assets.append(a)
+            write_assets = np.arange(target.asset_count, dtype=np.int64)
 
-    # pre-create/truncate every chunked target file to its final size so
-    # concurrent block scatters never race on sizing
-    for a in chunked_assets:
-        full = _full_path(root, target.path(a))
-        ensure_parent_dirs(version_storage, full)
-        version_storage.write_ranges(full, int(target.asset_sizes[a]), [])
+        mon0 = get_monitor()
+        if mon0:
+            mon0.version_begin(target.asset_count, target.chunk_count)
 
-    per_block = _build_block_write_infos(target, store_index, chunked_assets)
-    if block_indexes is not None:
-        keep = set(int(b) for b in block_indexes)
-        per_block = {b: v for b, v in per_block.items() if b in keep}
-    total = len(per_block)
+        block_store.preflight_get(store_index.block_hashes)
 
-    raw_fetch = getattr(block_store, "get_stored_block_raw", None) or \
-        block_store.get_stored_block
-    decomp = getattr(block_store, "decompress_stored_block", None) or \
-        (lambda blk: blk)
+        # non-block assets: directories and zero-size files (:8292); order is
+        # short-to-long path so parents exist first
+        ordered = sorted((int(a) for a in write_assets),
+                         key=lambda a: len(target.path(a)))
+        chunked_assets = []
+        for a in ordered:
+            check(cancel_token)
+            path = target.path(a)
+            full = _full_path(root, path.rstrip("/"))
+            if path.endswith("/"):
+                if not version_storage.is_dir(full):
+                    ensure_parent_dirs(version_storage, full + "/x")
+                    try:
+                        version_storage.create_dir(full)
+                    except StorageError as e:
+                        if e.errno != errno.EEXIST:
+                            raise
+            elif int(target.asset_sizes[a]) == 0:
+                ensure_parent_dirs(version_storage, full)
+                version_storage.write(full, b"")
+            else:
+                chunked_assets.append(a)
 
-    def fetch_block(b: int):
-        check(cancel_token)
-        bh = int(store_index.block_hashes[b])
-        mon = get_monitor()
-        if mon:
-            mon.block_load(b, bh, 0)
-        return raw_fetch(bh)
-
-    def scatter_block(item, data: bytes) -> None:
-        check(cancel_token)
-        b, (assets, file_offs, block_offs, sizes) = item
-        mon = get_monitor()
-        if mon:
-            mon.block_compose(b, int(store_index.block_hashes[b]))
-        view = memoryview(data)       # zero-copy range slices
-        # group consecutive runs per asset (writes arrive in file order)
-        uniq, starts = np.unique(assets, return_index=True)
-        bounds = np.append(np.sort(starts), len(assets))
-        for s, e in zip(bounds[:-1], bounds[1:]):
-            a = int(assets[s])
-            ranges = [(int(file_offs[i]),
-                       view[int(block_offs[i]):int(block_offs[i])
-                            + int(sizes[i])])
-                      for i in range(s, e)]
+        # pre-create/truncate every chunked target file to its final size so
+        # concurrent block scatters never race on sizing
+        for a in chunked_assets:
             full = _full_path(root, target.path(a))
+            ensure_parent_dirs(version_storage, full)
+            version_storage.write_ranges(full, int(target.asset_sizes[a]), [])
+
+        per_block = _build_block_write_infos(target, store_index,
+                                             chunked_assets)
+        if block_indexes is not None:
+            keep = set(int(b) for b in block_indexes)
+            per_block = {b: v for b, v in per_block.items() if b in keep}
+        total = len(per_block)
+        s.n = sum(int(v[3].sum()) for v in per_block.values())
+
+        raw_fetch = getattr(block_store, "get_stored_block_raw", None) or \
+            block_store.get_stored_block
+        decomp = getattr(block_store, "decompress_stored_block", None) or \
+            (lambda blk: blk)
+
+        def decode_block(raw):
+            with span("change.decode") as sp:
+                blk = decomp(raw)
+                sp.n = len(blk.block_data)
+            return blk
+
+        def fetch_block(b: int):
+            check(cancel_token)
+            bh = int(store_index.block_hashes[b])
+            mon = get_monitor()
             if mon:
-                mon.asset_write(a, int(file_offs[s]),
-                                sum(len(r[1]) for r in ranges))
-            version_storage.write_ranges(
-                full, int(target.asset_sizes[a]), ranges)
+                mon.block_load(b, bh, 0)
+            return raw_fetch(bh)
 
-    items = list(per_block.items())
-    if workers > 1 and total > 1:
-        # overlapped pipeline on the two-channel job graph: raw block
-        # fetches on channel 1 (I/O), decompress + scatter on channel 0
-        # (CPU), one dependency chain per block with a sliding window so
-        # at most `window` blocks are in flight — the reference's
-        # channel-1 block readers + in-flight cap, the lever behind its
-        # 0.4.1 peak-memory numbers (src/longtail.c:5169, :4997;
-        # CHANGELOG.md:73-76).
-        from longtail_tpu_torch.parallel.jobgraph import JobGraph
+        def scatter_block(item, data: bytes) -> None:
+            check(cancel_token)
+            b, (assets, file_offs, block_offs, sizes) = item
+            mon = get_monitor()
+            if mon:
+                mon.block_compose(b, int(store_index.block_hashes[b]))
+            view = memoryview(data)       # zero-copy range slices
+            # group consecutive runs per asset (writes arrive in file order)
+            uniq, starts = np.unique(assets, return_index=True)
+            bounds = np.append(np.sort(starts), len(assets))
+            for s, e in zip(bounds[:-1], bounds[1:]):
+                a = int(assets[s])
+                ranges = [(int(file_offs[i]),
+                           view[int(block_offs[i]):int(block_offs[i])
+                                + int(sizes[i])])
+                          for i in range(s, e)]
+                full = _full_path(root, target.path(a))
+                if mon:
+                    mon.asset_write(a, int(file_offs[s]),
+                                    sum(len(r[1]) for r in ranges))
+                version_storage.write_ranges(
+                    full, int(target.asset_sizes[a]), ranges)
 
-        window = max(8, workers + workers // 2)
-        graph = JobGraph(workers={0: workers, 1: max(2, workers // 2)})
-        done = 0
-        done_lock = threading.Lock()
+        items = list(per_block.items())
+        if workers > 1 and total > 1:
+            # overlapped pipeline on the two-channel job graph: raw block
+            # fetches on channel 1 (I/O), decompress + scatter on channel 0
+            # (CPU), one dependency chain per block with a sliding window so
+            # at most `window` blocks are in flight — the reference's
+            # channel-1 block readers + in-flight cap, the lever behind its
+            # 0.4.1 peak-memory numbers (src/longtail.c:5169, :4997;
+            # CHANGELOG.md:73-76).
+            from longtail_tpu_torch.parallel.jobgraph import JobGraph
 
-        def tick():
-            nonlocal done
-            with done_lock:
-                done += 1
-                progress(done, total)
+            window = max(8, workers + workers // 2)
+            graph = JobGraph(workers={0: workers, 1: max(2, workers // 2)})
+            done = 0
+            done_lock = threading.Lock()
 
-        scatter_ids: list[int] = []
-        for j, item in enumerate(items):
-            b = item[0]
-            deps_f = [scatter_ids[j - window]] if j >= window else []
-            f = graph.add(lambda b=b: fetch_block(b), deps=deps_f,
-                          channel=1)
+            def tick():
+                nonlocal done
+                with done_lock:
+                    done += 1
+                    progress(done, total)
 
-            def decode(f=f, b=b):
-                blk = decomp(graph.result(f))
-                graph.drop_result(f)
+            scatter_ids: list[int] = []
+            for j, item in enumerate(items):
+                b = item[0]
+                deps_f = [scatter_ids[j - window]] if j >= window else []
+                f = graph.add(lambda b=b: fetch_block(b), deps=deps_f,
+                              channel=1)
+
+                def decode(f=f, b=b):
+                    blk = decode_block(graph.result(f))
+                    graph.drop_result(f)
+                    mon = get_monitor()
+                    if mon:
+                        mon.block_load_complete(
+                            b, int(store_index.block_hashes[b]))
+                    return blk.block_data
+
+                d = graph.add(decode, deps=[f])
+
+                def scatter(item=item, d=d):
+                    scatter_block(item, graph.result(d))
+                    graph.drop_result(d)
+                    tick()
+
+                scatter_ids.append(graph.add(scatter, deps=[d]))
+            graph.run()
+        else:
+            for i, item in enumerate(items):
+                blk = decode_block(fetch_block(item[0]))
                 mon = get_monitor()
                 if mon:
                     mon.block_load_complete(
-                        b, int(store_index.block_hashes[b]))
-                return blk.block_data
+                        item[0], int(store_index.block_hashes[item[0]]))
+                scatter_block(item, blk.block_data)
+                progress(i + 1, total)
 
-            d = graph.add(decode, deps=[f])
-
-            def scatter(item=item, d=d):
-                scatter_block(item, graph.result(d))
-                graph.drop_result(d)
-                tick()
-
-            scatter_ids.append(graph.add(scatter, deps=[d]))
-        graph.run()
-    else:
-        for i, item in enumerate(items):
-            blk = decomp(fetch_block(item[0]))
-            mon = get_monitor()
-            if mon:
-                mon.block_load_complete(
-                    item[0], int(store_index.block_hashes[item[0]]))
-            scatter_block(item, blk.block_data)
-            progress(i + 1, total)
-
-    if retain_permissions_flag:
-        retain_permissions(version_storage, target, root)
-    if mon0:
-        mon0.version_end()
+        if retain_permissions_flag:
+            retain_permissions(version_storage, target, root)
+        if mon0:
+            mon0.version_end()
 
 
 def write_version(block_store, version_storage: Storage,

@@ -51,6 +51,7 @@ from longtail_tpu_torch.parallel.pipeline import (
     resolve_device,
 )
 from longtail_tpu_torch.stores.storage import Storage, walk_files
+from longtail_tpu_torch.utils.monitor import carry, span
 from longtail_tpu_torch.utils.progress import null_progress
 
 # the hashes the device data plane runs, by hash identifier
@@ -260,7 +261,7 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
                 pos += n
 
     with ThreadPoolExecutor(max_workers=max(1, workers // 2)) as pool:
-        futures = [pool.submit(small_work, i) for i in small]
+        futures = [pool.submit(carry(small_work), i) for i in small]
         acc: dict[int, list] = {}
         for i, sizes, hashes in indexer.index_stream(parts()):
             acc.setdefault(i, []).append((hashes, sizes))
@@ -268,8 +269,9 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
         for i, pieces in acc.items():
             results[i] = (np.concatenate([p[0] for p in pieces]),
                           np.concatenate([p[1] for p in pieces]))
-        for f in futures:
-            f.result()
+        with span("index.small_wait"):
+            for f in futures:
+                f.result()
     return results
 
 
@@ -373,11 +375,6 @@ def assemble_chunked_assets(results, file_infos: FileInfos, hasher,
     (src/longtail.c:2518-2537).  Also the reassembly step after the
     multi-host chunk-result exchange."""
     count = file_infos.count
-    if path_hashes is None:
-        path_hashes = np.array(
-            [hasher.hash_buffer(p.encode("utf-8"))
-             for p in file_infos.paths],
-            dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
     counts = np.array([len(r[0]) for r in results], dtype=np.uint32)
     starts = np.zeros(count, dtype=np.uint32)
     if count:
@@ -392,13 +389,20 @@ def assemble_chunked_assets(results, file_infos: FileInfos, hasher,
     else:
         chunk_tags = np.zeros(total, dtype=np.uint32)
 
-    # content hash = hash of the asset's chunk-hash bytes (src/longtail.c:2531)
-    content_hashes = np.array([
-        hasher.hash_buffer(
-            chunk_hashes[starts[i]:starts[i] + counts[i]]
-            .astype("<u8").tobytes())
-        for i in range(count)
-    ], dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
+    with span("index.asset_hash", count):
+        if path_hashes is None:
+            path_hashes = np.array(
+                [hasher.hash_buffer(p.encode("utf-8"))
+                 for p in file_infos.paths],
+                dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
+        # content hash = hash of the asset's chunk-hash bytes
+        # (src/longtail.c:2531)
+        content_hashes = np.array([
+            hasher.hash_buffer(
+                chunk_hashes[starts[i]:starts[i] + counts[i]]
+                .astype("<u8").tobytes())
+            for i in range(count)
+        ], dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
 
     return ChunkedAssets(
         chunk_hashes=chunk_hashes, chunk_sizes=chunk_sizes,
@@ -430,14 +434,16 @@ def create_version_index(storage: Storage, root: str,
         hash_identifier = HASH_TYPE_BLAKE3
     if device is not None:
         device = resolve_device(device)
-    if file_infos is None:
-        file_infos = get_files_recursively(storage, root, path_filter,
-                                           workers=workers or 1)
-    ca = chunk_assets(storage, root, file_infos, hash_identifier,
-                      target_chunk_size, asset_tags, workers, device,
-                      mesh, progress)
-    return build_version_index_from_chunked(
-        ca, file_infos, hash_identifier, target_chunk_size)
+    with span("index") as s:
+        if file_infos is None:
+            file_infos = get_files_recursively(storage, root, path_filter,
+                                               workers=workers or 1)
+        s.n = int(file_infos.sizes.sum())
+        ca = chunk_assets(storage, root, file_infos, hash_identifier,
+                          target_chunk_size, asset_tags, workers, device,
+                          mesh, progress)
+        return build_version_index_from_chunked(
+            ca, file_infos, hash_identifier, target_chunk_size)
 
 
 def build_version_index_from_chunked(ca: ChunkedAssets,

@@ -22,7 +22,7 @@ from longtail_tpu_torch.formats.store_index import StoreIndex, StoredBlock
 from longtail_tpu_torch.formats.version_index import VersionIndex
 from longtail_tpu_torch.stores.storage import Storage
 from longtail_tpu_torch.utils.cancel import check
-from longtail_tpu_torch.utils.monitor import get_monitor
+from longtail_tpu_torch.utils.monitor import get_monitor, now_ns, record, span
 from longtail_tpu_torch.utils.progress import null_progress
 
 
@@ -79,89 +79,102 @@ def write_content(source_storage: Storage, block_store,
     missing-content plan and writes its own slice."""
     if missing_store_index.block_count == 0:
         return
-    part_lookup = create_asset_part_lookup(version_index)
     block_list = list(range(missing_store_index.block_count)) \
         if block_indexes is None else [int(b) for b in block_indexes]
     total = len(block_list)
     if total == 0:
         return
+    with span("write") as s:
+        part_lookup = create_asset_part_lookup(version_index)
 
-    def assemble_block(b: int) -> StoredBlock:
-        check(cancel_token)
-        mon = get_monitor()
-        bh = int(missing_store_index.block_hashes[b])
-        if mon:
-            mon.block_prepare(b, bh)
-        hashes, sizes = missing_store_index.block_chunks(b)
-        parts = bytearray()
-        # group consecutive chunks from the same asset into one read
-        # (WriteContentBlockJob read-range merging, src/longtail.c:4640-4721)
-        pend_asset = -1
-        pend_offset = 0
-        pend_size = 0
+        def assemble_block(b: int) -> StoredBlock:
+            check(cancel_token)
+            mon = get_monitor()
+            bh = int(missing_store_index.block_hashes[b])
+            if mon:
+                mon.block_prepare(b, bh)
+            hashes, sizes = missing_store_index.block_chunks(b)
+            parts = bytearray()
+            # group consecutive chunks from the same asset into one read
+            # (WriteContentBlockJob read-range merging,
+            # src/longtail.c:4640-4721)
+            pend_asset = -1
+            pend_offset = 0
+            pend_size = 0
 
-        def flush_read():
-            nonlocal pend_size
-            if pend_size:
-                path = version_index.path(pend_asset)
-                full = f"{version_root}/{path}" if version_root else path
-                parts.extend(source_storage.read(full, pend_offset, pend_size))
-                pend_size = 0
+            def flush_read():
+                nonlocal pend_size
+                if pend_size:
+                    path = version_index.path(pend_asset)
+                    full = f"{version_root}/{path}" if version_root else path
+                    parts.extend(source_storage.read(full, pend_offset,
+                                                     pend_size))
+                    pend_size = 0
 
-        for h, size in zip(hashes, sizes):
-            asset, offset, psize = part_lookup[int(h)]
-            if psize != int(size):
-                raise ValueError(
-                    f"chunk {int(h):#x} size mismatch {psize} != {int(size)}")
-            if asset == pend_asset and offset == pend_offset + pend_size:
-                pend_size += psize
-            else:
-                flush_read()
-                pend_asset, pend_offset, pend_size = asset, offset, psize
-        flush_read()
-        return StoredBlock(
-            block_index=missing_store_index.get_block_index(b),
-            block_data=bytes(parts))
+            for h, size in zip(hashes, sizes):
+                asset, offset, psize = part_lookup[int(h)]
+                if psize != int(size):
+                    raise ValueError(
+                        f"chunk {int(h):#x} size mismatch {psize} != "
+                        f"{int(size)}")
+                if asset == pend_asset and offset == pend_offset + pend_size:
+                    pend_size += psize
+                else:
+                    flush_read()
+                    pend_asset, pend_offset, pend_size = asset, offset, psize
+            flush_read()
+            return StoredBlock(
+                block_index=missing_store_index.get_block_index(b),
+                block_data=bytes(parts))
 
-    done = 0
-    done_lock = threading.Lock()
+        done = 0
+        written = 0
+        done_lock = threading.Lock()
 
-    def put_block(b: int, block: StoredBlock) -> None:
-        nonlocal done
-        check(cancel_token)
-        mon = get_monitor()
-        bh = int(missing_store_index.block_hashes[b])
-        if mon:
-            mon.block_save(b, bh, len(block.block_data))
-        block_store.put_stored_block(block)
-        if mon:
-            mon.block_save_complete(b, bh)
-        with done_lock:
-            done += 1
-            progress(done, total)
+        def put_block(b: int, block: StoredBlock, ready: int = 0) -> None:
+            """ready: now_ns() when the block's assembly ended (0: untimed)."""
+            nonlocal done, written
+            if ready:
+                record("write.put_wait", ready, now_ns())
+            check(cancel_token)
+            mon = get_monitor()
+            bh = int(missing_store_index.block_hashes[b])
+            raw = len(block.block_data)
+            if mon:
+                mon.block_save(b, bh, raw)
+            with span("write.put", raw):
+                block_store.put_stored_block(block)
+            if mon:
+                mon.block_save_complete(b, bh)
+            with done_lock:
+                done += 1
+                written += raw
+                progress(done, total)
 
-    if workers > 1 and total > 1:
-        # two-channel job graph (the reference's WriteContentBlockJob on
-        # the shed + async PutStoredBlock park/resume, src/longtail.c:
-        # 4559-4758): channel 0 assembles block payloads from source
-        # reads, channel 1 carries the store puts, with a dependency
-        # edge per block so puts overlap later assemblies.  A sliding
-        # window (assemble_i waits on put_{i-window}) bounds in-flight
-        # assembled blocks, and each put drops its payload reference —
-        # without both, an upsync holds every assembled block in memory.
-        graph = JobGraph(workers={0: workers, 1: max(2, workers // 2)})
-        window = max(8, workers + workers // 2)
-        put_ids: list[int] = []
-        for j, b in enumerate(block_list):
-            deps_a = [put_ids[j - window]] if j >= window else []
-            a = graph.add(lambda b=b: assemble_block(b), deps=deps_a)
+        if workers > 1 and total > 1:
+            # two-channel job graph (the reference's WriteContentBlockJob on
+            # the shed + async PutStoredBlock park/resume, src/longtail.c:
+            # 4559-4758): channel 0 assembles block payloads from source
+            # reads, channel 1 carries the store puts, with a dependency
+            # edge per block so puts overlap later assemblies.  A sliding
+            # window (assemble_i waits on put_{i-window}) bounds in-flight
+            # assembled blocks, and each put drops its payload reference —
+            # without both, an upsync holds every assembled block in memory.
+            graph = JobGraph(workers={0: workers, 1: max(2, workers // 2)})
+            window = max(8, workers + workers // 2)
+            put_ids: list[int] = []
+            for j, b in enumerate(block_list):
+                deps_a = [put_ids[j - window]] if j >= window else []
+                a = graph.add(lambda b=b: (assemble_block(b), now_ns()),
+                              deps=deps_a)
 
-            def put(b=b, a=a):
-                put_block(b, graph.result(a))
-                graph.drop_result(a)
+                def put(b=b, a=a):
+                    put_block(b, *graph.result(a))
+                    graph.drop_result(a)
 
-            put_ids.append(graph.add(put, deps=[a], channel=1))
-        graph.run()
-    else:
-        for b in block_list:
-            put_block(b, assemble_block(b))
+                put_ids.append(graph.add(put, deps=[a], channel=1))
+            graph.run()
+        else:
+            for b in block_list:
+                put_block(b, assemble_block(b))
+        s.n = written

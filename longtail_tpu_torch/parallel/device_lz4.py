@@ -21,6 +21,7 @@ from longtail_tpu_torch.parallel.device_match import (
     decode_anchors,
     submit_anchors,
 )
+from longtail_tpu_torch.utils.monitor import span
 
 ROW_BYTES = ROW_WORDS * 4
 
@@ -29,14 +30,15 @@ def block_anchors(src: bytes, device):
     """One-shot device anchor scan of a host buffer: position-sorted
     (pos, ref) byte-offset arrays (hints for any LZ assembler)."""
     n = len(src)
-    # pow2 row counts, as the JAX package pads (its compiled-program
-    # classes); the zero padding only adds anchors at or past n
-    npad = ROW_BYTES
-    while npad < n:
-        npad *= 2
-    buf = np.zeros(npad, np.uint8)
-    buf[:n] = np.frombuffer(src, np.uint8)
-    words = torch.from_numpy(buf.view(np.int32)).to(device)
+    with span("codec.upload"):
+        # pow2 row counts, as the JAX package pads (its compiled-program
+        # classes); the zero padding only adds anchors at or past n
+        npad = ROW_BYTES
+        while npad < n:
+            npad *= 2
+        buf = np.zeros(npad, np.uint8)
+        buf[:n] = np.frombuffer(src, np.uint8)
+        words = torch.from_numpy(buf.view(np.int32)).to(device)
     rows, counts = collect_anchors(submit_anchors(words))
     pos, ref = decode_anchors(rows, counts, 0, rows.shape[0])
     keep = pos < n
@@ -50,4 +52,5 @@ def compress_block(src: bytes, device) -> bytes:
     if len(src) < ROW_BYTES:
         return lz4.compress(src)
     pos, ref = block_anchors(src, device)
-    return lz4.assemble_anchors(src, pos, ref)
+    with span("codec.assemble"):
+        return lz4.assemble_anchors(src, pos, ref)

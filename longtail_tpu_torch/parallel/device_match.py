@@ -33,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from longtail_tpu_torch.utils.monitor import span
+
 ROW_WORDS = 16384        # samples per sort row = 64 KiB of data
 MAX_ANCHORS = 2048       # compacted anchors kept per row
 
@@ -283,15 +285,16 @@ def collect_anchors(handle):
     with k the power of two >= the largest count (at least 8, at most
     cap), so only that many columns come back."""
     packed, counts, ev, cap = handle
-    if ev is not None:
-        ev.synchronize()
-    counts = counts.numpy()
-    cmax = int(counts.max()) if counts.size else 0
-    k = 8
-    while k < cmax:
-        k *= 2
-    k = min(k, cap)
-    rows = packed[:, :k].cpu().numpy().astype(np.uint32)
+    with span("codec.card_wait"):
+        if ev is not None:
+            ev.synchronize()
+        counts = counts.numpy()
+        cmax = int(counts.max()) if counts.size else 0
+        k = 8
+        while k < cmax:
+            k *= 2
+        k = min(k, cap)
+        rows = packed[:, :k].cpu().numpy().astype(np.uint32)
     return rows, counts
 
 

@@ -28,6 +28,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from longtail_tpu_torch.utils.monitor import carry
+
 
 @dataclass
 class Suspend:
@@ -76,7 +78,8 @@ class JobGraph:
             channel: int = 0) -> int:
         if channel not in self._workers:
             raise ValueError(f"no worker pool for channel {channel}")
-        j = _Job(fn=fn, channel=channel)
+        # the job runs under the request and span that added it
+        j = _Job(fn=carry(fn), channel=channel)
         jid = len(self._jobs)
         self._jobs.append(j)
         for d in deps or []:

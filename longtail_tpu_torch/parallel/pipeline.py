@@ -56,6 +56,7 @@ from longtail_tpu_torch.parallel.stage1 import (
     stage1,
     unpack_walk,
 )
+from longtail_tpu_torch.utils.monitor import carry, span
 
 HASH_KINDS = ("blake3", "blake2")
 
@@ -102,11 +103,12 @@ def _prefetch(it: Iterable, depth: int) -> Iterator:
         except BaseException as e:  # propagate into the consumer
             put(e)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=carry(worker), daemon=True)
     t.start()
     try:
         while True:
-            x = q.get()
+            with span("index.read_wait"):
+                x = q.get()
             if x is _END:
                 return
             if isinstance(x, BaseException):
@@ -215,19 +217,23 @@ class DevicePartIndexer:
         batch buffer, upload it, queue stage 1."""
         B, P = self.lanes, self.part_bytes
         tags = [t for t, _ in batch]
-        buf = self._host_buffer((B * P,), torch.uint8)
-        flat = buf.numpy()
-        lengths = np.zeros((B,), dtype=np.int32)
-        for i, (_, part) in enumerate(batch):
-            part = np.asarray(part, dtype=np.uint8)
-            if len(part) > P:
-                raise ValueError(
-                    f"part of {len(part)} bytes > part_bytes {P}")
-            flat[i * P: i * P + len(part)] = part
-            flat[i * P + len(part): (i + 1) * P] = 0
-            lengths[i] = len(part)
-        flat[len(batch) * P:] = 0
-        return self.submit(tags, self._upload(buf), lengths, host_rows=flat)
+        # the copy reads mapped files: their page faults land here
+        with span("index.stage") as s:
+            buf = self._host_buffer((B * P,), torch.uint8)
+            flat = buf.numpy()
+            lengths = np.zeros((B,), dtype=np.int32)
+            for i, (_, part) in enumerate(batch):
+                part = np.asarray(part, dtype=np.uint8)
+                if len(part) > P:
+                    raise ValueError(
+                        f"part of {len(part)} bytes > part_bytes {P}")
+                flat[i * P: i * P + len(part)] = part
+                flat[i * P + len(part): (i + 1) * P] = 0
+                lengths[i] = len(part)
+            flat[len(batch) * P:] = 0
+            dev = self._upload(buf)
+            s.n = int(lengths.sum())
+        return self.submit(tags, dev, lengths, host_rows=flat)
 
     # -- stage 2 + 3 ------------------------------------------------------
 
@@ -242,38 +248,42 @@ class DevicePartIndexer:
         tags, dev_rows, lengths, out_host, ev, host_rows, bins = entry
         P = self.part_bytes
         n_lanes = len(tags)
-        if ev is not None:
-            ev.synchronize()
-        sizes, counts, amb = unpack_walk(out_host.numpy(), self.plan)
-        for b in range(n_lanes):
-            if amb[b]:
-                if host_rows is not None:
-                    lane = host_rows[b * P: b * P + lengths[b]]
-                else:
-                    lane = dev_rows[b * P: b * P + lengths[b]].cpu().numpy()
-                fixed = repair_lane(lane, self.cfg)
-                counts[b] = len(fixed)
-                sizes[b, : len(fixed)] = fixed
-                sizes[b, len(fixed):] = 0
+        with span("index.card_wait"):
+            if ev is not None:
+                ev.synchronize()
+        with span("index.plan") as s:
+            sizes, counts, amb = unpack_walk(out_host.numpy(), self.plan)
+            for b in range(n_lanes):
+                if amb[b]:
+                    if host_rows is not None:
+                        lane = host_rows[b * P: b * P + lengths[b]]
+                    else:
+                        lane = dev_rows[b * P: b * P + lengths[b]] \
+                            .cpu().numpy()
+                    fixed = repair_lane(lane, self.cfg)
+                    counts[b] = len(fixed)
+                    sizes[b, : len(fixed)] = fixed
+                    sizes[b, len(fixed):] = 0
 
-        lane_sizes = []
-        all_starts, all_sizes = [], []
-        for b in range(n_lanes):
-            sz = sizes[b, : counts[b]].astype(np.int64)
-            lane_sizes.append(sz.astype(np.uint32))
-            st = np.zeros(len(sz), dtype=np.int64)
-            np.cumsum(sz[:-1], out=st[1:])
-            all_starts.append(st + b * P)
-            all_sizes.append(sz)
-        flat_starts = np.concatenate(all_starts) if all_starts \
-            else np.zeros(0, np.int64)
-        flat_sizes = np.concatenate(all_sizes) if all_sizes \
-            else np.zeros(0, np.int64)
-        res_host, ev = self._fetch(self._hash(dev_rows, flat_starts,
-                                              flat_sizes))
-        out = (tags, lane_sizes, counts[:n_lanes], res_host, ev)
-        if keep_words:
-            out += (dev_rows.view(torch.int32), bins)
+            lane_sizes = []
+            all_starts, all_sizes = [], []
+            for b in range(n_lanes):
+                sz = sizes[b, : counts[b]].astype(np.int64)
+                lane_sizes.append(sz.astype(np.uint32))
+                st = np.zeros(len(sz), dtype=np.int64)
+                np.cumsum(sz[:-1], out=st[1:])
+                all_starts.append(st + b * P)
+                all_sizes.append(sz)
+            flat_starts = np.concatenate(all_starts) if all_starts \
+                else np.zeros(0, np.int64)
+            flat_sizes = np.concatenate(all_sizes) if all_sizes \
+                else np.zeros(0, np.int64)
+            res_host, ev = self._fetch(self._hash(dev_rows, flat_starts,
+                                                  flat_sizes))
+            out = (tags, lane_sizes, counts[:n_lanes], res_host, ev)
+            if keep_words:
+                out += (dev_rows.view(torch.int32), bins)
+            s.n = len(flat_sizes)
         return out
 
     def _hash(self, dev_rows, starts: np.ndarray, sizes: np.ndarray):
@@ -328,8 +338,9 @@ class DevicePartIndexer:
         """Stage 3 drain: wait for the digests and yield
         (tag, sizes u32, hashes u64) per part in submission order."""
         tags, lane_sizes, counts, res_host, ev = entry[:5]
-        if ev is not None:
-            ev.synchronize()
+        with span("index.card_wait"):
+            if ev is not None:
+                ev.synchronize()
         res = res_host.numpy().view(np.uint32).astype(np.uint64)
         hashes = res[0] | (res[1] << np.uint64(32))
         off = 0
