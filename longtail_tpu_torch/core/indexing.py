@@ -51,7 +51,7 @@ from longtail_tpu_torch.parallel.pipeline import (
     resolve_device,
 )
 from longtail_tpu_torch.stores.storage import Storage, walk_files
-from longtail_tpu_torch.utils.monitor import carry, span
+from longtail_tpu_torch.utils.monitor import carry, now_ns, record, span
 from longtail_tpu_torch.utils.progress import null_progress
 
 # the hashes the device data plane runs, by hash identifier
@@ -346,9 +346,6 @@ def chunk_assets(storage: Storage, root: str, file_infos: FileInfos,
         return assemble_chunked_assets(results, file_infos, hasher,
                                        asset_tags)
 
-    path_hashes = np.array(
-        [hasher.hash_buffer(p.encode("utf-8")) for p in file_infos.paths],
-        dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
     results = [None] * count
 
     def work(i: int):
@@ -363,17 +360,47 @@ def chunk_assets(storage: Storage, root: str, file_infos: FileInfos,
     else:
         for i in range(count):
             work(i)
-    return assemble_chunked_assets(results, file_infos, hasher,
-                                   asset_tags, path_hashes)
+    return assemble_chunked_assets(results, file_infos, hasher, asset_tags)
+
+
+def hash_assets(hasher, paths: list[str], chunk_hashes: np.ndarray,
+                starts: np.ndarray, counts: np.ndarray):
+    """(path_hashes, content_hashes) of every asset: the hash of its
+    utf-8 path (src/longtail.c:1269-1279) and of its chunk-hash bytes
+    (:2531).  One native ``hash_ranges`` call each, over the path blob of
+    ``build_name_data`` and the chunk-hash array's bytes, where the hasher
+    has one and it is built (recorded as ``index.asset_hash.batch``);
+    else one ``hash_buffer`` call per path and per asset."""
+    count = len(paths)
+    ranged = getattr(hasher, "hash_ranges", None)
+    if count and ranged is not None:
+        t0 = now_ns()
+        offsets, blob = build_name_data(paths)
+        sizes = np.diff(offsets.astype(np.int64), append=len(blob)) - 1
+        path_hashes = ranged(np.frombuffer(blob, dtype=np.uint8), offsets,
+                             sizes)
+        if path_hashes is not None:
+            data = np.ascontiguousarray(chunk_hashes, dtype="<u8")
+            content_hashes = ranged(data.view(np.uint8),
+                                    starts.astype(np.int64) * 8,
+                                    counts.astype(np.int64) * 8)
+            if content_hashes is not None:
+                record("index.asset_hash.batch", t0, now_ns(), count)
+                return path_hashes, content_hashes
+    path_hashes = np.array([hasher.hash_buffer(p.encode("utf-8"))
+                            for p in paths], dtype=np.uint64)
+    content_hashes = np.array([
+        hasher.hash_buffer(chunk_hashes[starts[i]:starts[i] + counts[i]]
+                           .astype("<u8").tobytes())
+        for i in range(count)], dtype=np.uint64)
+    return path_hashes, content_hashes
 
 
 def assemble_chunked_assets(results, file_infos: FileInfos, hasher,
-                            asset_tags=None,
-                            path_hashes=None) -> ChunkedAssets:
-    """Fold per-asset (hashes, sizes) streams into ChunkedAssets —
-    per-asset content hash = hash of the chunk-hash bytes
-    (src/longtail.c:2518-2537).  Also the reassembly step after the
-    multi-host chunk-result exchange."""
+                            asset_tags=None) -> ChunkedAssets:
+    """Fold per-asset (hashes, sizes) streams into ChunkedAssets, with
+    each asset's path and content hash (``hash_assets``).  Also the
+    reassembly step after the multi-host chunk-result exchange."""
     count = file_infos.count
     counts = np.array([len(r[0]) for r in results], dtype=np.uint32)
     starts = np.zeros(count, dtype=np.uint32)
@@ -390,19 +417,8 @@ def assemble_chunked_assets(results, file_infos: FileInfos, hasher,
         chunk_tags = np.zeros(total, dtype=np.uint32)
 
     with span("index.asset_hash", count):
-        if path_hashes is None:
-            path_hashes = np.array(
-                [hasher.hash_buffer(p.encode("utf-8"))
-                 for p in file_infos.paths],
-                dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
-        # content hash = hash of the asset's chunk-hash bytes
-        # (src/longtail.c:2531)
-        content_hashes = np.array([
-            hasher.hash_buffer(
-                chunk_hashes[starts[i]:starts[i] + counts[i]]
-                .astype("<u8").tobytes())
-            for i in range(count)
-        ], dtype=np.uint64) if count else np.zeros(0, dtype=np.uint64)
+        path_hashes, content_hashes = hash_assets(
+            hasher, file_infos.paths, chunk_hashes, starts, counts)
 
     return ChunkedAssets(
         chunk_hashes=chunk_hashes, chunk_sizes=chunk_sizes,

@@ -4,6 +4,10 @@ every span of an upsync and a downsync on the CPU under its request, and
 the span clock against ``torch.profiler``'s."""
 
 import collections
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -13,6 +17,7 @@ import torch
 
 from longtail_tpu_torch import api
 from longtail_tpu_torch.formats import constants as C
+from longtail_tpu_torch.ops import blake3
 from longtail_tpu_torch.stores.compressblockstore import CompressBlockStore
 from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
 from longtail_tpu_torch.stores.storage import MemStorage
@@ -20,12 +25,14 @@ from longtail_tpu_torch.utils import monitor
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # every span the port records
 NAMES = {"upsync", "downsync", "index", "index.read_wait", "index.stage",
          "index.plan", "index.card_wait", "index.small_wait",
-         "index.asset_hash", "write", "write.put", "write.put_wait",
-         "codec.upload", "codec.card_wait", "codec.assemble", "change",
-         "change.decode"}
+         "index.asset_hash", "index.asset_hash.batch", "write", "write.put",
+         "write.put_wait", "codec.upload", "codec.card_wait",
+         "codec.assemble", "change", "change.decode"}
 
 
 @pytest.fixture
@@ -125,26 +132,34 @@ def _tree(storage, rng):
             0, 256, 300 + 900 * i, np.uint8).tobytes())
 
 
+_KW = dict(target_chunk_size=4096, target_block_size=1 << 17,
+           compression_tag=C.COMPRESSION_TYPE_LZ4_DEFAULT, workers=4,
+           device="cpu")
+
+
+def _store():
+    return CompressBlockStore(FSBlockStore(MemStorage(), "store"),
+                              device="cpu")
+
+
 def test_upsync_downsync_spans(recording):
     rng = np.random.default_rng(5)
     src = MemStorage()
     _tree(src, rng)
-    store = CompressBlockStore(FSBlockStore(MemStorage(), "store"),
-                               device="cpu")
-    kw = dict(target_chunk_size=4096, target_block_size=1 << 17,
-              compression_tag=C.COMPRESSION_TYPE_LZ4_DEFAULT, workers=4,
-              device="cpu")
-    vi, _ = api.upsync(src, "src", store, **kw)
+    store = _store()
+    vi, _ = api.upsync(src, "src", store, **_KW)
     out = MemStorage()
     api.downsync(store, out, "out", vi, workers=4, device="cpu")
     # a second version, downsynced over the first: the target re-index
     src.write("src/big1", rng.integers(0, 256, 400_000, np.uint8).tobytes())
-    vi2, _ = api.upsync(src, "src", store, **kw)
+    vi2, _ = api.upsync(src, "src", store, **_KW)
     api.downsync(store, out, "out", vi2, workers=4, device="cpu")
     puts = store.get_stats().put_stored_block_count
 
     spans = monitor.spans()
-    assert {s.name for s in spans} == NAMES
+    names = NAMES if blake3._native() is not None \
+        else NAMES - {"index.asset_hash.batch"}
+    assert {s.name for s in spans} == names
     by_id = {s.id: s for s in spans}
     requests = collections.defaultdict(list)
     for s in spans:
@@ -167,12 +182,52 @@ def test_upsync_downsync_spans(recording):
     index = {s.request: s for s in spans if s.name == "index"}
     for r, v in zip(ups, (vi, vi2)):
         assert index[r].n == int(v.asset_sizes.sum())
+    # the batch hashes every asset of each index, inside its asset hashing
+    for s in spans:
+        if s.name == "index.asset_hash.batch":
+            outer = by_id[s.parent]
+            assert outer.name == "index.asset_hash" and s.n == outer.n > 0
+            assert outer.t0_ns <= s.t0_ns <= s.t1_ns <= outer.t1_ns
+    batched = [s.n for s in spans if s.name == "index.asset_hash.batch"]
+    if blake3._native() is not None:
+        # both upsyncs, then the re-index of the client folder (vi's tree)
+        assert batched == [vi.asset_count, vi2.asset_count, vi.asset_count]
     assert sum(s.name == "write.put" for s in spans) == puts
     for s in index.values():
         inner = sum(x.t1_ns - x.t0_ns for x in spans
                     if x.name.startswith("index.") and x.thread == s.thread
+                    and x.name != "index.asset_hash.batch"   # nested
                     and s.t0_ns <= x.t0_ns < s.t1_ns)
         assert inner <= s.t1_ns - s.t0_ns
+
+
+def test_no_native_records_no_batch():
+    """Under LONGTAIL_TPU_NO_NATIVE (a fresh interpreter, so that no
+    native library is cached) the assets are hashed one by one:
+    index.asset_hash holds no batch child."""
+    code = """
+import json
+import numpy as np
+from longtail_tpu_torch import api
+from longtail_tpu_torch.ops import blake3
+from longtail_tpu_torch.stores.storage import MemStorage
+from longtail_tpu_torch.utils import monitor
+from tests.test_torch_spans import _KW, _store, _tree
+assert blake3._native() is None
+src = MemStorage()
+_tree(src, np.random.default_rng(6))
+monitor.set_monitor(monitor.Monitor())
+vi, _ = api.upsync(src, "src", _store(), **_KW)
+monitor.set_monitor(None)
+print(json.dumps([vi.asset_count] + [[s.name, s.n] for s in monitor.spans()
+                                     if s.name.startswith("index.asset")]))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO, LONGTAIL_TPU_NO_NATIVE="1")
+    out = subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                         cwd=REPO, timeout=300, capture_output=True,
+                         text=True).stdout
+    count, *hashed = json.loads(out.strip().splitlines()[-1])
+    assert hashed == [["index.asset_hash", count]] and count == 8
 
 
 def test_span_on_the_profiler_clock(recording):
