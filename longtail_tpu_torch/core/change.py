@@ -26,7 +26,8 @@ from longtail_tpu_torch.formats.store_index import StoreIndex
 from longtail_tpu_torch.formats.version_index import VersionIndex
 from longtail_tpu_torch.stores.storage import Storage, StorageError, ensure_parent_dirs
 from longtail_tpu_torch.utils.cancel import check
-from longtail_tpu_torch.utils.monitor import get_monitor, span
+from longtail_tpu_torch.utils.monitor import get_monitor, now_ns, record, \
+    span
 from longtail_tpu_torch.utils.progress import null_progress
 
 
@@ -148,6 +149,8 @@ def change_version(block_store, version_storage: Storage,
     (idempotent), cleanup and permission retention are the caller's
     responsibility to run once."""
     with span("change") as s:
+        # change.prepare: this thread's work up to the job graph's run
+        t_prepare = now_ns()
         target = target_version_index
         if source_version_index is not None and diff is None:
             diff = create_version_diff(source_version_index, target)
@@ -222,30 +225,35 @@ def change_version(block_store, version_storage: Storage,
             mon = get_monitor()
             if mon:
                 mon.block_load(b, bh, 0)
-            return raw_fetch(bh)
+            with span("change.fetch") as sp:
+                raw = raw_fetch(bh)
+                sp.n = len(raw.block_data)
+            return raw
 
         def scatter_block(item, data: bytes) -> None:
             check(cancel_token)
             b, (assets, file_offs, block_offs, sizes) = item
-            mon = get_monitor()
-            if mon:
-                mon.block_compose(b, int(store_index.block_hashes[b]))
-            view = memoryview(data)       # zero-copy range slices
-            # group consecutive runs per asset (writes arrive in file order)
-            uniq, starts = np.unique(assets, return_index=True)
-            bounds = np.append(np.sort(starts), len(assets))
-            for s, e in zip(bounds[:-1], bounds[1:]):
-                a = int(assets[s])
-                ranges = [(int(file_offs[i]),
-                           view[int(block_offs[i]):int(block_offs[i])
-                                + int(sizes[i])])
-                          for i in range(s, e)]
-                full = _full_path(root, target.path(a))
+            with span("change.scatter", int(sizes.sum())):
+                mon = get_monitor()
                 if mon:
-                    mon.asset_write(a, int(file_offs[s]),
-                                    sum(len(r[1]) for r in ranges))
-                version_storage.write_ranges(
-                    full, int(target.asset_sizes[a]), ranges)
+                    mon.block_compose(b, int(store_index.block_hashes[b]))
+                view = memoryview(data)       # zero-copy range slices
+                # group consecutive runs per asset (writes arrive in file
+                # order)
+                uniq, starts = np.unique(assets, return_index=True)
+                bounds = np.append(np.sort(starts), len(assets))
+                for s, e in zip(bounds[:-1], bounds[1:]):
+                    a = int(assets[s])
+                    ranges = [(int(file_offs[i]),
+                               view[int(block_offs[i]):int(block_offs[i])
+                                    + int(sizes[i])])
+                              for i in range(s, e)]
+                    full = _full_path(root, target.path(a))
+                    if mon:
+                        mon.asset_write(a, int(file_offs[s]),
+                                        sum(len(r[1]) for r in ranges))
+                    version_storage.write_ranges(
+                        full, int(target.asset_sizes[a]), ranges)
 
         items = list(per_block.items())
         if workers > 1 and total > 1:
@@ -293,8 +301,10 @@ def change_version(block_store, version_storage: Storage,
                     tick()
 
                 scatter_ids.append(graph.add(scatter, deps=[d]))
+            record("change.prepare", t_prepare, now_ns())
             graph.run()
         else:
+            record("change.prepare", t_prepare, now_ns())
             for i, item in enumerate(items):
                 blk = decode_block(fetch_block(item[0]))
                 mon = get_monitor()

@@ -88,44 +88,49 @@ def write_content(source_storage: Storage, block_store,
         part_lookup = create_asset_part_lookup(version_index)
 
         def assemble_block(b: int) -> StoredBlock:
-            check(cancel_token)
-            mon = get_monitor()
-            bh = int(missing_store_index.block_hashes[b])
-            if mon:
-                mon.block_prepare(b, bh)
-            hashes, sizes = missing_store_index.block_chunks(b)
-            parts = bytearray()
-            # group consecutive chunks from the same asset into one read
-            # (WriteContentBlockJob read-range merging,
-            # src/longtail.c:4640-4721)
-            pend_asset = -1
-            pend_offset = 0
-            pend_size = 0
+            with span("write.assemble") as sp:
+                check(cancel_token)
+                mon = get_monitor()
+                bh = int(missing_store_index.block_hashes[b])
+                if mon:
+                    mon.block_prepare(b, bh)
+                hashes, sizes = missing_store_index.block_chunks(b)
+                parts = bytearray()
+                # group consecutive chunks from the same asset into one read
+                # (WriteContentBlockJob read-range merging,
+                # src/longtail.c:4640-4721)
+                pend_asset = -1
+                pend_offset = 0
+                pend_size = 0
 
-            def flush_read():
-                nonlocal pend_size
-                if pend_size:
-                    path = version_index.path(pend_asset)
-                    full = f"{version_root}/{path}" if version_root else path
-                    parts.extend(source_storage.read(full, pend_offset,
-                                                     pend_size))
-                    pend_size = 0
+                def flush_read():
+                    nonlocal pend_size
+                    if pend_size:
+                        path = version_index.path(pend_asset)
+                        full = f"{version_root}/{path}" if version_root \
+                            else path
+                        parts.extend(source_storage.read(full, pend_offset,
+                                                         pend_size))
+                        pend_size = 0
 
-            for h, size in zip(hashes, sizes):
-                asset, offset, psize = part_lookup[int(h)]
-                if psize != int(size):
-                    raise ValueError(
-                        f"chunk {int(h):#x} size mismatch {psize} != "
-                        f"{int(size)}")
-                if asset == pend_asset and offset == pend_offset + pend_size:
-                    pend_size += psize
-                else:
-                    flush_read()
-                    pend_asset, pend_offset, pend_size = asset, offset, psize
-            flush_read()
-            return StoredBlock(
-                block_index=missing_store_index.get_block_index(b),
-                block_data=bytes(parts))
+                for h, size in zip(hashes, sizes):
+                    asset, offset, psize = part_lookup[int(h)]
+                    if psize != int(size):
+                        raise ValueError(
+                            f"chunk {int(h):#x} size mismatch {psize} != "
+                            f"{int(size)}")
+                    if asset == pend_asset and \
+                            offset == pend_offset + pend_size:
+                        pend_size += psize
+                    else:
+                        flush_read()
+                        pend_asset, pend_offset, pend_size = \
+                            asset, offset, psize
+                flush_read()
+                sp.n = len(parts)
+                return StoredBlock(
+                    block_index=missing_store_index.get_block_index(b),
+                    block_data=bytes(parts))
 
         done = 0
         written = 0

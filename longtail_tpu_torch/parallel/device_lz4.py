@@ -39,10 +39,15 @@ def block_anchors(src: bytes, device):
         buf = np.zeros(npad, np.uint8)
         buf[:n] = np.frombuffer(src, np.uint8)
         words = torch.from_numpy(buf.view(np.int32)).to(device)
-    rows, counts = collect_anchors(submit_anchors(words))
-    pos, ref = decode_anchors(rows, counts, 0, rows.shape[0])
-    keep = pos < n
-    return pos[keep], ref[keep]
+    with span("codec.launch", n):
+        handle = submit_anchors(words)
+    rows, counts = collect_anchors(handle)
+    with span("codec.anchors_decode") as sp:
+        pos, ref = decode_anchors(rows, counts, 0, rows.shape[0])
+        keep = pos < n
+        pos, ref = pos[keep], ref[keep]
+        sp.n = len(pos)
+    return pos, ref
 
 
 def compress_block(src: bytes, device) -> bytes:

@@ -23,6 +23,7 @@ from longtail_tpu_torch.ops.compression_registry import (
 )
 from longtail_tpu_torch.parallel.pipeline import resolve_device
 from longtail_tpu_torch.stores.blockstore import BlockStoreBase
+from longtail_tpu_torch.utils.monitor import span
 
 _HDR = struct.Struct("<II")
 
@@ -34,9 +35,9 @@ def compress_block(stored_block: StoredBlock, device=None) -> StoredBlock:
     codec = get_codec(tag, device)
     raw = stored_block.block_data
     comp = codec.compress(tag, raw)
-    return StoredBlock(
-        block_index=stored_block.block_index,
-        block_data=_HDR.pack(len(raw), len(comp)) + comp)
+    with span("codec.frame", len(raw)):
+        data = _HDR.pack(len(raw), len(comp)) + comp
+    return StoredBlock(block_index=stored_block.block_index, block_data=data)
 
 
 def decompress_block(stored_block: StoredBlock,

@@ -26,6 +26,7 @@ from longtail_tpu_torch.formats.store_index import StoreIndex, StoredBlock
 from longtail_tpu_torch.formats.version_index import FormatError
 from longtail_tpu_torch.stores.blockstore import BlockStoreBase
 from longtail_tpu_torch.stores.storage import Storage, StorageError, ensure_parent_dirs
+from longtail_tpu_torch.utils.monitor import span
 
 
 def block_path(block_hash: int, extension: str = ".lrb") -> str:
@@ -96,27 +97,29 @@ class FSBlockStore(BlockStoreBase):
     # -- BlockStore API ----------------------------------------------------
 
     def put_stored_block(self, stored_block: StoredBlock) -> None:
-        bh = stored_block.block_index.block_hash
-        path = self._block_path(bh)
-        with self._lock:
-            index_loaded = self._index is not None
-            known = bh in self._known_blocks if index_loaded else False
-        if not known and not self.storage.exists(path):
-            blob = stored_block.to_bytes()
-            ensure_parent_dirs(self.storage, path)
-            # crash-safe: unique tmp name then rename
-            # (SafeWriteStoredBlock, lib/fsblockstore/…:243)
-            tmp = path + f".tmp-{os.getpid()}-{threading.get_ident()}"
-            self.storage.write(tmp, blob)
-            self.storage.rename(tmp, path)
-            self.stats.bump("put_stored_block_byte_count", len(blob))
-            self.stats.bump("chunks_in_put_count",
-                            stored_block.block_index.chunk_count)
-        with self._lock:
-            if bh not in self._known_blocks:
-                self._known_blocks.add(bh)
-                self._pending.append(stored_block.block_index)
-        self.stats.bump("put_stored_block_count")
+        with span("store.put") as sp:
+            bh = stored_block.block_index.block_hash
+            path = self._block_path(bh)
+            with self._lock:
+                index_loaded = self._index is not None
+                known = bh in self._known_blocks if index_loaded else False
+            if not known and not self.storage.exists(path):
+                blob = stored_block.to_bytes()
+                ensure_parent_dirs(self.storage, path)
+                # crash-safe: unique tmp name then rename
+                # (SafeWriteStoredBlock, lib/fsblockstore/…:243)
+                tmp = path + f".tmp-{os.getpid()}-{threading.get_ident()}"
+                self.storage.write(tmp, blob)
+                self.storage.rename(tmp, path)
+                sp.n = len(blob)
+                self.stats.bump("put_stored_block_byte_count", len(blob))
+                self.stats.bump("chunks_in_put_count",
+                                stored_block.block_index.chunk_count)
+            with self._lock:
+                if bh not in self._known_blocks:
+                    self._known_blocks.add(bh)
+                    self._pending.append(stored_block.block_index)
+            self.stats.bump("put_stored_block_count")
 
     def get_stored_block(self, block_hash: int) -> StoredBlock:
         # mmap the .lrb (lib/fsblockstore/longtail_fsblockstore.c:928):

@@ -73,6 +73,11 @@ class Monitor:
 # ---------------------------------------------------------------------------
 
 SPAN_CAPACITY = 1 << 16
+# the interpreter-lock wait probe: its sleep and the least lateness kept.
+# Each late wake makes the thread holding the lock hand it over, so the
+# period is long beside the interpreter's 5 ms switch interval.
+PROBE_PERIOD_NS = 20_000_000
+PROBE_FLOOR_NS = 500_000
 
 
 class Span(NamedTuple):
@@ -226,17 +231,48 @@ def epoch_offset_ns() -> int:
     return _buffer.epoch_offset_ns
 
 
+class _Probe:
+    """The interpreter-lock wait probe (see the module's docstring)."""
+
+    def __init__(self):
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True,
+                                       name="longtail-gil-probe")
+        self.thread.start()
+
+    def run(self) -> None:
+        period = PROBE_PERIOD_NS / 1e9
+        while not self.stop.is_set():
+            due = time.perf_counter_ns() + PROBE_PERIOD_NS
+            time.sleep(period)
+            woke = time.perf_counter_ns()
+            if woke - due >= PROBE_FLOOR_NS:
+                record("host.gil_wait", due, woke)
+
+    def join(self) -> None:
+        self.stop.set()
+        self.thread.join()
+
+
+_probe: _Probe | None = None
+
+
 def set_monitor(monitor: Monitor | None) -> None:
     """Install (or clear) the global monitor (Longtail_SetMonitor,
     src/longtail.c:762).  Spans are recorded exactly while one is
     installed; installing one where none was starts a new recording with
-    an empty buffer."""
-    global _monitor, _buffer, _recording
+    an empty buffer and the interpreter-lock wait probe, clearing it
+    stops the recording and joins the probe."""
+    global _monitor, _buffer, _recording, _probe
     if monitor is not None and _recording is None:
         _buffer = _Buffer()
         _recording = _buffer
+        _probe = _Probe()
     elif monitor is None:
         _recording = None
+        if _probe is not None:
+            _probe.join()
+            _probe = None
     _monitor = monitor
 
 

@@ -18,11 +18,17 @@ installed, and prints one JSON object:
 - ``workers``: inside ``write`` and ``change``, whose work runs on worker
   threads, the same idle time shared out at each instant equally over
   the worker steps open then: each block waiting for a put worker
-  (``write.put_wait``) and each worker thread's innermost step
-  (``codec.upload``, ``codec.card_wait``, ``codec.assemble``,
-  ``change.decode``, and ``write.put (self)``: the rest of a put, which
-  queues the anchor search and writes to the store);
-  ``(none)`` where no worker step is open;
+  (``write.put_wait``) and each worker thread's innermost step (an
+  assembler's ``write.assemble``; a put's ``codec.upload``,
+  ``codec.launch``, ``codec.card_wait``, ``codec.anchors_decode``,
+  ``codec.assemble``, ``codec.frame``, ``store.put``, and ``write.put
+  (self)``: the rest of a put, which no span names; a patch's
+  ``change.fetch``, ``change.decode``, ``change.scatter``); ``(none)``
+  where no worker step is open (``change.prepare``, the main thread's
+  work before the patch's job graph runs, is a span of its own);
+- ``gil_wait``: the interpreter-lock wait probe's ``host.gil_wait``
+  spans inside the job's wall, in seconds and as a share of the wall
+  and of ``idle_s`` (the part of the idle in which the probe waited);
 - ``clock_check``: ``card_wait_on_busy_pct``, the share of the
   ``index.card_wait`` and ``codec.card_wait`` wall that overlaps the
   card's busy intervals (low where the work waited for had ended before
@@ -63,8 +69,11 @@ from ltbench.trace import PREFIX, _events  # noqa: E402
 
 ROOTS = ("upsync", "downsync")
 SPREAD = ("write", "change")          # their work runs on worker threads
-NESTED = ("write.put", "codec.upload", "codec.card_wait", "codec.assemble",
-          "change.decode")            # a worker thread's steps
+NESTED = ("write.assemble", "write.put", "codec.upload", "codec.launch",
+          "codec.card_wait", "codec.anchors_decode", "codec.assemble",
+          "codec.frame", "store.put", "change.fetch", "change.decode",
+          "change.scatter")           # a worker thread's steps
+GIL_WAIT = "host.gil_wait"
 QUEUED = "write.put_wait"
 CARD_WAITS = ("index.card_wait", "codec.card_wait")
 
@@ -159,6 +168,23 @@ def attribute(spans: list, root, busy: list) -> tuple:
     return by_span, by_worker
 
 
+def gil_wait(spans: list, root, busy: list, idle: int) -> dict:
+    """The probe's host.gil_wait time inside the root's wall, and the part
+    of it in which the card was idle."""
+    starts = [b[0] for b in busy]
+    window = root.t1_ns - root.t0_ns
+    got = on_busy = 0
+    for s in spans:
+        if s.name != GIL_WAIT:
+            continue
+        a, b = max(s.t0_ns, root.t0_ns), min(s.t1_ns, root.t1_ns)
+        if b > a:
+            got += b - a
+            on_busy += overlap(busy, starts, a, b)
+    return {"s": got / 1e9, "pct_of_window": 100.0 * got / window,
+            "pct_of_idle": 100.0 * (got - on_busy) / idle if idle else None}
+
+
 def table(ns: dict, total: int) -> dict:
     return {k: {"s": v / 1e9, "pct": 100.0 * v / total if total else None}
             for k, v in sorted(ns.items(), key=lambda kv: -kv[1])}
@@ -191,7 +217,7 @@ def card_probe() -> dict:
                 torch.cuda.synchronize()
     finally:
         monitor.set_monitor(None)
-    probe, = monitor.spans()
+    probe, = (s for s in monitor.spans() if s.name == "probe")
     off = monitor.epoch_offset_ns()
     a, b = probe.t0_ns + off, probe.t1_ns + off
     busy = busy_intervals(_events(prof), a, b)
@@ -286,6 +312,7 @@ def main(argv=None) -> int:
         "by_span": table(by_span, idle),
         "workers": {k: table(v, sum(v.values()))
                     for k, v in by_worker.items()},
+        "gil_wait": gil_wait(spans, root, busy, idle),
         "clock_check": {
             "card_wait_s": wait_ns / 1e9,
             "card_wait_on_busy_pct": 100.0 * covered / wait_ns
