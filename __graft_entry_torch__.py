@@ -32,7 +32,7 @@ from longtail_tpu_torch.ops import blake3_kernel, pack
 from longtail_tpu_torch.parallel import stage1
 from longtail_tpu_torch.parallel.device_chunker import ChunkerConfig
 from longtail_tpu_torch.parallel.multihost import _launch_counts
-from longtail_tpu_torch.parallel.pipeline import resolve_device
+from longtail_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TARGET = 1024

@@ -65,11 +65,11 @@ from longtail_tpu_torch.parallel.device_match import (
 from longtail_tpu_torch.parallel.pipeline import (
     DevicePartIndexer,
     MeshPartIndexer,
-    resolve_device,
 )
 from longtail_tpu_torch.stores.compressblockstore import CompressBlockStore
 from longtail_tpu_torch.stores.fsblockstore import FSBlockStore
 from longtail_tpu_torch.stores.storage import FSStorage
+from longtail_tpu_torch.utils.device import resolve_device
 
 BASELINE_GBPS = 5.0
 MODES = ("chunk_hash_compress", "chunk_hash", "mesh_chunk_hash", "compress",

@@ -34,9 +34,9 @@ from longtail_tpu_torch.core.write import write_content
 from longtail_tpu_torch.formats import constants as C
 from longtail_tpu_torch.formats.store_index import StoreIndex
 from longtail_tpu_torch.formats.version_index import VersionIndex
-from longtail_tpu_torch.parallel.pipeline import resolve_device
 from longtail_tpu_torch.stores.storage import Storage
 from longtail_tpu_torch.utils import memtracer
+from longtail_tpu_torch.utils.device import resolve_device
 from longtail_tpu_torch.utils.monitor import span
 from longtail_tpu_torch.utils.progress import null_progress
 

@@ -33,7 +33,6 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from longtail_tpu_torch.formats.constants import (
     CHUNKER_WINDOW_SIZE,
@@ -48,9 +47,9 @@ from longtail_tpu_torch.ops.hash_registry import get_hasher
 from longtail_tpu_torch.parallel.pipeline import (
     DevicePartIndexer,
     MeshPartIndexer,
-    resolve_device,
 )
 from longtail_tpu_torch.stores.storage import Storage, walk_files
+from longtail_tpu_torch.utils.device import resolve_device
 from longtail_tpu_torch.utils.monitor import carry, now_ns, record, span
 from longtail_tpu_torch.utils.progress import null_progress
 
@@ -179,19 +178,25 @@ def _part_reader(storage, full_path: str, size: int):
     return lambda pos, n: checked(pos, n, storage.read(full_path, pos, n))
 
 
+def _asset_parts(storage, root: str, path: str, size: int,
+                 part_bytes: int):
+    """Yield the bytes of each part of ``part_bytes`` (the last one
+    shorter) of an asset, in order, read through ``_part_reader``."""
+    full_path = f"{root}/{path}" if root else path
+    read = _part_reader(storage, full_path, size)
+    for pos in range(0, size, part_bytes):
+        yield read(pos, min(part_bytes, size - pos))
+
+
 def _chunk_one_asset(storage, root: str, path: str, size: int,
                      target_chunk_size: int, hasher):
     """Chunk + hash a single asset, part by part. Returns (hashes, sizes)."""
     min_s, avg_s, max_s = chunker_params_from_target(target_chunk_size)
-    max_part = target_chunk_size * 1024
-    full_path = f"{root}/{path}" if root else path
-    read = _part_reader(storage, full_path, size)
     all_hashes = []
     all_sizes = []
-    pos = 0
-    while pos < size:
-        part_size = min(max_part, size - pos)
-        data = read(pos, part_size)
+    for data in _asset_parts(storage, root, path, size,
+                             target_chunk_size * 1024):
+        part_size = len(data)
         if part_size <= CHUNKER_WINDOW_SIZE:
             # whole part is one chunk (DynamicChunking small-part path,
             # src/longtail.c:2053-2115)
@@ -203,24 +208,22 @@ def _chunk_one_asset(storage, root: str, path: str, size: int,
         hashes = hash_chunk_batch(hasher, data, starts, sizes)
         all_hashes.append(hashes)
         all_sizes.append(sizes.astype(np.uint32))
-        pos += part_size
     if not all_hashes:
         return (np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.uint32))
     return (np.concatenate(all_hashes), np.concatenate(all_sizes))
 
 
-def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
-                         target_chunk_size: int, hash_identifier: int,
-                         device: torch.device, progress=null_progress,
-                         workers: int = 8) -> list:
-    """Stream large files' parts through the device pipeline while small
-    files run on the host path concurrently (a small file would
-    waste a whole lane), both with the hash ``hash_identifier``.  Returns
-    per-asset (hashes u64, sizes u32)."""
-    indexer = DevicePartIndexer(target_chunk_size, device,
-                                hash_kind=DEVICE_HASH_KINDS[hash_identifier])
-    max_part = indexer.part_bytes
-    small_cutoff = max(indexer.cfg.max_size, max_part // 64)
+def _chunk_assets_card(storage, root: str, file_infos: FileInfos,
+                       target_chunk_size: int, hasher, indexer,
+                       small_cutoff: int, progress=null_progress,
+                       workers: int = 8) -> list:
+    """Stream the parts of every file over ``small_cutoff`` bytes through
+    ``indexer`` (a DevicePartIndexer or a MeshPartIndexer) while the
+    smaller ones run on the host path on ``max(1, workers // 2)`` threads
+    (a small file would waste a whole lane).  Parts are tagged by asset
+    and retire in submission order; global dedup is the host unique of
+    create_version_index, as in ``longtail_tpu/core/indexing.py:253``.
+    Returns per-asset (hashes u64, sizes u32)."""
     count = file_infos.count
     results = [
         (np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.uint32))
@@ -240,8 +243,6 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
             done += 1
             progress(min(done, count), count)
 
-    hasher = get_hasher(hash_identifier)
-
     def small_work(i: int):
         results[i] = _chunk_one_asset(
             storage, root, file_infos.paths[i], int(file_infos.sizes[i]),
@@ -250,15 +251,10 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
 
     def parts():
         for i in big:
-            size = int(file_infos.sizes[i])
-            path = file_infos.paths[i]
-            full = f"{root}/{path}" if root else path
-            read = _part_reader(storage, full, size)
-            pos = 0
-            while pos < size:
-                n = min(max_part, size - pos)
-                yield i, read(pos, n)
-                pos += n
+            for data in _asset_parts(storage, root, file_infos.paths[i],
+                                     int(file_infos.sizes[i]),
+                                     indexer.part_bytes):
+                yield i, data
 
     with ThreadPoolExecutor(max_workers=max(1, workers // 2)) as pool:
         futures = [pool.submit(carry(small_work), i) for i in small]
@@ -275,50 +271,6 @@ def _chunk_assets_device(storage, root: str, file_infos: FileInfos,
     return results
 
 
-def _chunk_assets_mesh(storage, root: str, file_infos: FileInfos,
-                       target_chunk_size: int, mesh,
-                       progress=null_progress) -> list:
-    """The BLAKE3 data plane over the devices of ``mesh``: one indexer per
-    device, batches dealt round-robin (``MeshPartIndexer``).  Every file
-    goes through the devices, small ones too, its parts keyed by (asset,
-    position); per-part results return in submission order and global
-    dedup is the host unique of create_version_index, as in
-    ``longtail_tpu/core/indexing.py:253``.  Returns per-asset (hashes
-    u64, sizes u32)."""
-    indexer = MeshPartIndexer(target_chunk_size,
-                              [resolve_device(d) for d in mesh])
-    P = indexer.part_bytes
-    count = file_infos.count
-    results = [
-        (np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.uint32))
-        for _ in range(count)
-    ]
-
-    def parts():
-        for i in range(count):
-            size = int(file_infos.sizes[i])
-            path = file_infos.paths[i]
-            full = f"{root}/{path}" if root else path
-            read = _part_reader(storage, full, size)
-            pos = 0
-            while pos < size:
-                n = min(P, size - pos)
-                yield (i, pos), read(pos, n)
-                pos += n
-
-    acc: dict[int, list] = {}
-    done = 0
-    for (i, pos), sizes, hashes in indexer.index_stream(parts()):
-        acc.setdefault(i, []).append((pos, hashes, sizes))
-        done += 1
-        progress(min(done, count), count)
-    for i, pieces in acc.items():
-        pieces.sort(key=lambda p: p[0])
-        results[i] = (np.concatenate([p[1] for p in pieces]),
-                      np.concatenate([p[2] for p in pieces]))
-    return results
-
-
 def chunk_assets(storage: Storage, root: str, file_infos: FileInfos,
                  hash_identifier: int, target_chunk_size: int,
                  asset_tags: np.ndarray | None = None,
@@ -332,17 +284,22 @@ def chunk_assets(storage: Storage, root: str, file_infos: FileInfos,
     count = file_infos.count
     if device is not None:
         device = resolve_device(device)
+    indexer = None
     if mesh is not None and hash_identifier == HASH_TYPE_BLAKE3:
-        results = _chunk_assets_mesh(storage, root, file_infos,
-                                     target_chunk_size, mesh, progress)
-        return assemble_chunked_assets(results, file_infos, hasher,
-                                       asset_tags)
+        # every file goes through the cards, small ones too
+        indexer = MeshPartIndexer(target_chunk_size, mesh)
+        small_cutoff = 0
     # the JAX package has no device meow (its hasher ignores xp), so meow
     # runs on the host path whatever the device: there is no kernel to run
-    if device is not None and hash_identifier in DEVICE_HASH_KINDS:
-        results = _chunk_assets_device(storage, root, file_infos,
-                                       target_chunk_size, hash_identifier,
-                                       device, progress, workers or 8)
+    elif device is not None and hash_identifier in DEVICE_HASH_KINDS:
+        indexer = DevicePartIndexer(
+            target_chunk_size, device,
+            hash_kind=DEVICE_HASH_KINDS[hash_identifier])
+        small_cutoff = max(indexer.cfg.max_size, indexer.part_bytes // 64)
+    if indexer is not None:
+        results = _chunk_assets_card(storage, root, file_infos,
+                                     target_chunk_size, hasher, indexer,
+                                     small_cutoff, progress, workers or 8)
         return assemble_chunked_assets(results, file_infos, hasher,
                                        asset_tags)
 

@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from longtail_tpu_torch.utils.device import resolve_device
+
 _MINMATCH = 4
 
 
@@ -134,8 +136,6 @@ def decode_block_device(comp: bytes, raw_size: int,
                         device="cuda") -> bytes:
     """Decode one LZ4 block on ``device`` (the card by default, "cpu" for
     the same torch ops on the CPU); bit-exact with the host decoder."""
-    from longtail_tpu_torch.parallel.pipeline import resolve_device
-
     dev = resolve_device(device)
     if raw_size == 0:
         return b""

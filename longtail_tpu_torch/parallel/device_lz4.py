@@ -16,10 +16,11 @@ import torch
 
 from longtail_tpu_torch.ops import lz4
 from longtail_tpu_torch.parallel.device_match import (
+    _POS_BITS,
+    _POS_MASK,
+    MAX_ANCHORS,
     ROW_WORDS,
-    collect_anchors,
-    decode_anchors,
-    submit_anchors,
+    anchor_rows,
 )
 from longtail_tpu_torch.utils.monitor import span
 
@@ -31,19 +32,37 @@ def block_anchors(src: bytes, device):
     (pos, ref) byte-offset arrays (hints for any LZ assembler)."""
     n = len(src)
     with span("codec.upload"):
-        # pow2 row counts, as the JAX package pads (its compiled-program
-        # classes); the zero padding only adds anchors at or past n
-        npad = ROW_BYTES
-        while npad < n:
-            npad *= 2
-        buf = np.zeros(npad, np.uint8)
+        # whole rows: rows are sorted independently, so the zero padding
+        # only adds anchors at or past n, which are dropped below
+        buf = np.zeros(max(1, -(-n // ROW_BYTES)) * ROW_BYTES, np.uint8)
         buf[:n] = np.frombuffer(src, np.uint8)
         words = torch.from_numpy(buf.view(np.int32)).to(device)
     with span("codec.launch", n):
-        handle = submit_anchors(words)
-    rows, counts = collect_anchors(handle)
+        packed, counts = anchor_rows(words)
+        ev = None
+        if counts.device.type == "cuda":
+            host = torch.empty(counts.shape, dtype=counts.dtype,
+                               pin_memory=True)
+            counts = host.copy_(counts, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(packed.device))
+    with span("codec.card_wait"):
+        if ev is not None:
+            ev.synchronize()
+        counts = counts.numpy()
+        # only the columns up to the power of two >= the largest count
+        # (at least 8, at most MAX_ANCHORS) come back
+        k = 8
+        while k < counts.max():
+            k *= 2
+        k = min(k, MAX_ANCHORS)
+        rows = packed[:, :k].cpu().numpy().astype(np.uint32)
     with span("codec.anchors_decode") as sp:
-        pos, ref = decode_anchors(rows, counts, 0, rows.shape[0])
+        held = np.arange(k)[None, :] < counts[:, None]
+        vals = rows[held]                 # row-major: position-sorted
+        base = np.nonzero(held)[0].astype(np.int64) * ROW_BYTES
+        pos = base + ((vals >> _POS_BITS) & _POS_MASK).astype(np.int64) * 4
+        ref = base + (vals & _POS_MASK).astype(np.int64) * 4
         keep = pos < n
         pos, ref = pos[keep], ref[keep]
         sp.n = len(pos)

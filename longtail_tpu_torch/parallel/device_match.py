@@ -21,8 +21,8 @@ position, so keys are unique and no sort needs stability.
   (``make_fast_anchor_packed_fn`` / ``make_bins_anchor_packed_fn``):
   the single-fetch ``(blocks, 2*cap + 1)`` form of the fast tier, from
   words or from the stage-1 scan's bin-mins.
-- ``fast_block_anchors``, ``submit_anchors``, ``collect_anchors`` and
-  ``decode_anchors``: the host-facing entries, as in the JAX package.
+- ``fast_block_anchors``: the fast tier's host-facing entry; the
+  full-density tier's is ``parallel/device_lz4.block_anchors``.
 
 Anchors are hints: the host assemblers memcmp-validate and byte-extend
 every one, so a hash collision costs ratio, never correctness.
@@ -33,13 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from longtail_tpu_torch.utils.monitor import span
-
-ROW_WORDS = 16384        # samples per sort row = 64 KiB of data
-MAX_ANCHORS = 2048       # compacted anchors kept per row
-
 _POS_BITS = 14
 _POS_MASK = (1 << _POS_BITS) - 1
+
+ROW_WORDS = 1 << _POS_BITS   # samples per sort row = 64 KiB of data
+MAX_ANCHORS = 2048       # compacted anchors kept per row
 
 BIN_WORDS = 64           # one sampled anchor per 64 words (256 B)
 FAST_CAP = 4096          # anchors kept per block
@@ -90,24 +88,23 @@ def _sort_rows(key: torch.Tensor, *payload: torch.Tensor):
 # full-density tier
 # ---------------------------------------------------------------------------
 
-def anchor_rows(words: torch.Tensor, row_words: int = ROW_WORDS,
-                cap: int = MAX_ANCHORS):
-    """(n_words,) int32 word stream -> (packed (S, cap) int64 u32 values,
-    counts (S,) int32) with S = n_words // row_words; the counterpart of
-    ``make_anchor_fn``.
+def anchor_rows(words: torch.Tensor):
+    """(n_words,) int32 word stream -> (packed (S, MAX_ANCHORS) int64 u32
+    values, counts (S,) int32) with S = n_words // ROW_WORDS; the
+    counterpart of ``make_anchor_fn``.
 
     packed[s, j] for j < counts[s] encodes an anchor of row s: bits
     [14, 28) = sample position within the row, bits [0, 14) = the
     matching earlier sample position.  Entries past counts[s] have bit
-    28 set.  Trailing words beyond S * row_words are ignored."""
+    28 set.  Trailing words beyond S * ROW_WORDS are ignored."""
     n = words.numel()
-    S = n // row_words
-    if S < 1 or row_words != 1 << _POS_BITS:
-        raise ValueError(f"{n} words do not fill a row of {row_words}")
-    K = S * row_words
-    h = _gram_hash(_u32(words), K).view(S, row_words)
-    pos = torch.arange(row_words, device=words.device,
-                       dtype=torch.int64).expand(S, row_words)
+    S = n // ROW_WORDS
+    if S < 1:
+        raise ValueError(f"{n} words do not fill a row of {ROW_WORDS}")
+    K = S * ROW_WORDS
+    h = _gram_hash(_u32(words), K).view(S, ROW_WORDS)
+    pos = torch.arange(ROW_WORDS, device=words.device,
+                       dtype=torch.int64).expand(S, ROW_WORDS)
     key = ((h >> _POS_BITS) << _POS_BITS) | pos
     ks, hs = _sort_rows(key, h)
     col0 = pos == 0
@@ -127,8 +124,8 @@ def anchor_rows(words: torch.Tensor, row_words: int = ROW_WORDS,
     chain = valid & _prev(valid) & (dpos == dref) & (dpos >= 1) & (dpos <= 2)
     keep = valid & ~chain
     key3 = torch.where(keep, 0, 1 << 28) | (apos << _POS_BITS) | aref
-    s3 = torch.sort(key3, dim=1)[0][:, :cap]
-    counts = torch.clamp(keep.sum(dim=1), max=cap).to(torch.int32)
+    s3 = torch.sort(key3, dim=1)[0][:, :MAX_ANCHORS]
+    counts = torch.clamp(keep.sum(dim=1), max=MAX_ANCHORS).to(torch.int32)
     return s3, counts
 
 
@@ -260,59 +257,3 @@ def decode_packed(arr: np.ndarray):
         out.append((arr[b, :c].astype(np.int64) * 4,
                     arr[b, cap:cap + c].astype(np.int64) * 4))
     return out
-
-
-# ---------------------------------------------------------------------------
-# host-facing entries of the full-density tier
-# ---------------------------------------------------------------------------
-
-def submit_anchors(words: torch.Tensor, row_words: int = ROW_WORDS,
-                   cap: int = MAX_ANCHORS):
-    """Async half: queue the anchor scan over a device word stream and
-    the copy of its counts to the host; returns a handle."""
-    packed, counts = anchor_rows(words, row_words, cap)
-    if counts.device.type == "cuda":
-        host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
-        host.copy_(counts, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(counts.device))
-        return packed, host, ev, cap
-    return packed, counts, None, cap
-
-
-def collect_anchors(handle):
-    """Sync half: (rows (S, k) uint32 packed anchors, counts (S,) int32)
-    with k the power of two >= the largest count (at least 8, at most
-    cap), so only that many columns come back."""
-    packed, counts, ev, cap = handle
-    with span("codec.card_wait"):
-        if ev is not None:
-            ev.synchronize()
-        counts = counts.numpy()
-        cmax = int(counts.max()) if counts.size else 0
-        k = 8
-        while k < cmax:
-            k *= 2
-        k = min(k, cap)
-        rows = packed[:, :k].cpu().numpy().astype(np.uint32)
-    return rows, counts
-
-
-def decode_anchors(rows: np.ndarray, counts: np.ndarray, row0: int,
-                   n_rows: int, base_bytes: int = 0,
-                   row_words: int = ROW_WORDS):
-    """Decode rows [row0, row0 + n_rows) into position-sorted byte-offset
-    anchor arrays (pos, ref) relative to the span starting at the global
-    byte offset ``base_bytes``."""
-    sel = rows[row0: row0 + n_rows]
-    cnt = counts[row0: row0 + n_rows]
-    k = sel.shape[1]
-    j = np.arange(k, dtype=np.int32)[None, :]
-    mask = j < cnt[:, None]
-    vals = sel[mask]                      # row-major: position-sorted
-    rowi = np.broadcast_to(
-        np.arange(n_rows, dtype=np.int64)[:, None], sel.shape)[mask]
-    rbase = (row0 + rowi) * row_words * 4 - base_bytes
-    pos = (rbase + ((vals >> _POS_BITS) & _POS_MASK) * 4).astype(np.int64)
-    ref = (rbase + (vals & _POS_MASK) * 4).astype(np.int64)
-    return pos, ref

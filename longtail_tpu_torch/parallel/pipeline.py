@@ -25,6 +25,9 @@ way, so the host waits only where the JAX package does its two fetches
 per batch (``plan_hash`` and ``retire``): stage 1 of later batches and
 stage 3 of earlier ones stay queued on the card while the host plans.
 
+A batch moves between the stages as a ``Walked`` entry (after stage 1)
+and a ``Hashed`` entry (after stage 3).  ``index_stream`` is the one
+pipelined loop: ``DevicePartIndexer`` runs it over itself, and
 ``MeshPartIndexer`` deals batches round-robin over one
 ``DevicePartIndexer`` per device.  With ``device="cpu"`` every wrapper
 computes its plain version, which is how the tests hold the port against
@@ -34,10 +37,11 @@ the JAX package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 from collections import deque
-from typing import Iterable, Iterator, Tuple
+from typing import Iterable, Iterator, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,21 +60,35 @@ from longtail_tpu_torch.parallel.stage1 import (
     stage1,
     unpack_walk,
 )
+from longtail_tpu_torch.utils.device import resolve_device
 from longtail_tpu_torch.utils.monitor import carry, span
 
 HASH_KINDS = ("blake3", "blake2")
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device(device), refusing CUDA when no card is present: no
-    path continues on the CPU in place of the card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available (torch.cuda.is_available() is False)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+class Walked(NamedTuple):
+    """A batch after stage 1 (``submit``): its lanes' bytes and the walk
+    output on its way to the host."""
+    tags: list
+    dev_rows: torch.Tensor          # (lanes * part_bytes,) uint8 resident
+    lengths: np.ndarray             # (lanes,) int32
+    walk_host: torch.Tensor         # walk output, fetched to the host
+    event: object                   # its copy's CUDA event, None on the CPU
+    host_rows: np.ndarray | None    # the same bytes on the host
+    bins: torch.Tensor | None       # the scan's bin-mins (compress=True)
+
+
+class Hashed(NamedTuple):
+    """A batch after stage 3 (``plan_hash``): its chunk sizes and the
+    digests on their way to the host; ``words`` and ``bins`` are set only
+    with keep_words=True, for stage 4."""
+    tags: list
+    lane_sizes: list                # per lane, u32 chunk sizes
+    counts: np.ndarray              # per lane, its chunk count
+    digests_host: torch.Tensor      # (2, n) digests, fetched to the host
+    event: object
+    words: torch.Tensor | None      # the resident batch as int32 words
+    bins: torch.Tensor | None
 
 
 def _prefetch(it: Iterable, depth: int) -> Iterator:
@@ -210,7 +228,7 @@ class DevicePartIndexer:
         out, bins = stage1(dev_rows, lens, self._table, self.plan,
                            with_bins=self.compress)
         out_host, ev = self._fetch(out)
-        return (tags, dev_rows, lengths, out_host, ev, host_rows, bins)
+        return Walked(tags, dev_rows, lengths, out_host, ev, host_rows, bins)
 
     def submit_host(self, batch):
         """Stage 1 from host parts: copy (tag, bytes) pairs into a pinned
@@ -237,13 +255,13 @@ class DevicePartIndexer:
 
     # -- stage 2 + 3 ------------------------------------------------------
 
-    def plan_hash(self, entry, keep_words: bool = False):
+    def plan_hash(self, entry: Walked, keep_words: bool = False) -> Hashed:
         """Stage 2: wait for the walk output, repair flagged lanes, plan
         the hash; stage 3: queue the hash (one launch) and the async fetch
         of all digests.
 
-        keep_words=True appends the resident batch viewed as int32 words
-        and the scan's bin-mins (or None) to the returned entry, so that
+        keep_words=True keeps the resident batch viewed as int32 words
+        and the scan's bin-mins (or None) in the returned entry, so that
         stage 4 runs on the same device-resident data."""
         tags, dev_rows, lengths, out_host, ev, host_rows, bins = entry
         P = self.part_bytes
@@ -280,9 +298,9 @@ class DevicePartIndexer:
                 else np.zeros(0, np.int64)
             res_host, ev = self._fetch(self._hash(dev_rows, flat_starts,
                                                   flat_sizes))
-            out = (tags, lane_sizes, counts[:n_lanes], res_host, ev)
-            if keep_words:
-                out += (dev_rows.view(torch.int32), bins)
+            out = Hashed(tags, lane_sizes, counts[:n_lanes], res_host, ev,
+                         dev_rows.view(torch.int32) if keep_words else None,
+                         bins if keep_words else None)
             s.n = len(flat_sizes)
         return out
 
@@ -307,7 +325,7 @@ class DevicePartIndexer:
 
     # -- stage 4 ----------------------------------------------------------
 
-    def submit_compress(self, entry, block_bytes: int = 8 << 20,
+    def submit_compress(self, entry: Hashed, block_bytes: int = 8 << 20,
                         max_offset_words: int = 16383):
         """Stage 4: queue the fast-tier anchor extraction for the batch of
         an entry from plan_hash(keep_words=True), per ``block_bytes``
@@ -315,13 +333,12 @@ class DevicePartIndexer:
         compress=True only the bin-level sorts run (the scan already read
         the bytes); otherwise the bin-mins come from the resident words
         first.  Collect with collect_compress()."""
-        words, bins = entry[5], entry[6]
-        if bins is not None:
-            packed = bins_anchors_packed(
-                bins, block_bytes // 256, max_offset_words=max_offset_words)
+        if entry.bins is not None:
+            packed = bins_anchors_packed(entry.bins, block_bytes // 256,
+                                         max_offset_words=max_offset_words)
         else:
-            packed = fast_anchors_packed(
-                words, block_bytes // 4, max_offset_words=max_offset_words)
+            packed = fast_anchors_packed(entry.words, block_bytes // 4,
+                                         max_offset_words=max_offset_words)
         return self._fetch(packed)
 
     @staticmethod
@@ -334,49 +351,25 @@ class DevicePartIndexer:
             ev.synchronize()
         return decode_packed(packed.numpy())
 
-    def retire(self, entry):
+    def retire(self, entry: Hashed):
         """Stage 3 drain: wait for the digests and yield
         (tag, sizes u32, hashes u64) per part in submission order."""
-        tags, lane_sizes, counts, res_host, ev = entry[:5]
         with span("index.card_wait"):
-            if ev is not None:
-                ev.synchronize()
-        res = res_host.numpy().view(np.uint32).astype(np.uint64)
+            if entry.event is not None:
+                entry.event.synchronize()
+        res = entry.digests_host.numpy().view(np.uint32).astype(np.uint64)
         hashes = res[0] | (res[1] << np.uint64(32))
         off = 0
-        for tag, sz, cnt in zip(tags, lane_sizes, counts):
+        for tag, sz, cnt in zip(entry.tags, entry.lane_sizes, entry.counts):
             yield tag, sz, hashes[off: off + int(cnt)]
             off += int(cnt)
-
-    # -- streaming driver -------------------------------------------------
 
     def index_stream(self, tagged_parts: Iterable[Tuple[object, np.ndarray]],
                      prefetch_depth: int | None = None,
                      ) -> Iterator[Tuple[object, np.ndarray, np.ndarray]]:
         """Consume (tag, part_bytes) pairs; yield (tag, sizes u32, hashes u64)
         per part in submission order. Parts must be <= part_bytes long."""
-        B = self.lanes
-        depth = prefetch_depth if prefetch_depth is not None else 2 * B
-        stage1q: deque = deque()
-        stage2q: deque = deque()
-        batch: list = []
-        d = self.queue_depth
-        with contextlib.closing(_prefetch(tagged_parts, depth)) as src:
-            for item in src:
-                batch.append(item)
-                if len(batch) == B:
-                    stage1q.append(self.submit_host(batch))
-                    batch = []
-                    if len(stage1q) >= d:
-                        stage2q.append(self.plan_hash(stage1q.popleft()))
-                    if len(stage2q) >= d:
-                        yield from self.retire(stage2q.popleft())
-        if batch:
-            stage1q.append(self.submit_host(batch))
-        while stage1q:
-            stage2q.append(self.plan_hash(stage1q.popleft()))
-        while stage2q:
-            yield from self.retire(stage2q.popleft())
+        return index_stream([self], tagged_parts, prefetch_depth)
 
 
 class MeshPartIndexer:
@@ -413,34 +406,56 @@ class MeshPartIndexer:
                      ) -> Iterator[Tuple[object, np.ndarray, np.ndarray]]:
         """DevicePartIndexer.index_stream's contract, fanned out over
         every indexer."""
-        n = len(self.indexers)
-        B = self.indexers[0].lanes
-        depth = prefetch_depth if prefetch_depth is not None else 2 * B * n
-        stage1q: deque = deque()   # (indexer, entry), FIFO = global order
-        stage2q: deque = deque()
-        batch: list = []
-        bi = 0
-        d = self.indexers[0].queue_depth * n
-        with contextlib.closing(_prefetch(tagged_parts, depth)) as src:
-            for item in src:
-                batch.append(item)
-                if len(batch) == B:
-                    ix = self.indexers[bi % n]
-                    stage1q.append((ix, ix.submit_host(batch)))
-                    bi += 1
-                    batch = []
-                    if len(stage1q) >= d:
-                        ix, e = stage1q.popleft()
-                        stage2q.append((ix, ix.plan_hash(e)))
-                    if len(stage2q) >= d:
-                        ix, e = stage2q.popleft()
-                        yield from ix.retire(e)
-        if batch:
-            ix = self.indexers[bi % n]
-            stage1q.append((ix, ix.submit_host(batch)))
-        while stage1q:
-            ix, e = stage1q.popleft()
-            stage2q.append((ix, ix.plan_hash(e)))
-        while stage2q:
-            ix, e = stage2q.popleft()
-            yield from ix.retire(e)
+        return index_stream(self.indexers, tagged_parts, prefetch_depth)
+
+
+# ---------------------------------------------------------------------------
+# the streaming loop
+# ---------------------------------------------------------------------------
+
+def index_stream(indexers: Sequence[DevicePartIndexer],
+                 tagged_parts: Iterable[Tuple[object, np.ndarray]],
+                 prefetch_depth: int | None = None,
+                 ) -> Iterator[Tuple[object, np.ndarray, np.ndarray]]:
+    """Consume (tag, part_bytes) pairs; yield (tag, sizes u32, hashes u64)
+    per part in submission order.  Batches of the first indexer's lane
+    count are dealt round-robin over ``indexers``; each stage holds
+    ``queue_depth`` batches per indexer, and parts are read
+    2 * lanes * len(indexers) ahead (``prefetch_depth`` overrides)."""
+    n = len(indexers)
+    B = indexers[0].lanes
+    depth = prefetch_depth if prefetch_depth is not None else 2 * B * n
+    d = indexers[0].queue_depth * n
+    deal = itertools.cycle(indexers)
+    stage1q: deque = deque()   # (indexer, entry), FIFO = global order
+    stage2q: deque = deque()
+    batch: list = []
+
+    def submit(batch):
+        ix = next(deal)
+        stage1q.append((ix, ix.submit_host(batch)))
+
+    def plan():
+        ix, e = stage1q.popleft()
+        stage2q.append((ix, ix.plan_hash(e)))
+
+    def retire():
+        ix, e = stage2q.popleft()
+        return ix.retire(e)
+
+    with contextlib.closing(_prefetch(tagged_parts, depth)) as src:
+        for item in src:
+            batch.append(item)
+            if len(batch) == B:
+                submit(batch)
+                batch = []
+                if len(stage1q) >= d:
+                    plan()
+                if len(stage2q) >= d:
+                    yield from retire()
+    if batch:
+        submit(batch)
+    while stage1q:
+        plan()
+    while stage2q:
+        yield from retire()

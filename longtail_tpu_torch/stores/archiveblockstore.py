@@ -21,6 +21,7 @@ from longtail_tpu_torch.formats.store_index import StoreIndex, StoredBlock
 from longtail_tpu_torch.stores.blockstore import BlockStoreBase
 from longtail_tpu_torch.stores.compressblockstore import CompressBlockStore
 from longtail_tpu_torch.stores.storage import Storage, ensure_parent_dirs
+from longtail_tpu_torch.utils.device import resolve_device
 from longtail_tpu_torch.utils.progress import null_progress
 
 
@@ -117,7 +118,6 @@ def pack_archive(storage: Storage, source_root: str, archive_path: str,
         get_files_recursively
     from longtail_tpu_torch.core.write import write_content
     from longtail_tpu_torch.formats.constants import HASH_TYPE_BLAKE3
-    from longtail_tpu_torch.parallel.pipeline import resolve_device
 
     if device is not None:
         device = resolve_device(device)

@@ -21,8 +21,8 @@ from longtail_tpu_torch.ops.compression_registry import (
     get_codec,
     supported_tags,
 )
-from longtail_tpu_torch.parallel.pipeline import resolve_device
 from longtail_tpu_torch.stores.blockstore import BlockStoreBase
+from longtail_tpu_torch.utils.device import resolve_device
 from longtail_tpu_torch.utils.monitor import span
 
 _HDR = struct.Struct("<II")

@@ -135,18 +135,20 @@ def test_bins_and_fast_anchors_packed_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_collect_and_decode_anchors_match_jax():
-    w = _words(structured(5, 4 * dm.ROW_WORDS * 4))
-    rows, counts = dm.collect_anchors(dm.submit_anchors(_t(w)))
-    jrows, jcounts = jdm.collect_anchors(jdm.submit_anchors(
-        jax.device_put(w)))
-    np.testing.assert_array_equal(rows, jrows)
-    np.testing.assert_array_equal(counts, jcounts)
-    base = dm.ROW_WORDS * 4
-    for args in [(0, 4), (1, 2, base), (3, 1, 3 * base)]:
-        for g, x in zip(dm.decode_anchors(rows, counts, *args),
-                        jdm.decode_anchors(jrows, jcounts, *args)):
-            np.testing.assert_array_equal(g, x)
+@pytest.mark.parametrize("n", [
+    4 * dm.ROW_WORDS * 4,               # whole rows
+    3 * dm.ROW_WORDS * 4 + 4000,        # a last row cut short
+    5 * dm.ROW_WORDS * 4 + 100])        # 6 rows, not a power of two
+def test_block_anchors_match_jax(n):
+    """device_lz4.block_anchors pads to whole rows; the JAX package pads to
+    a power-of-two row count: the anchors below n are the same."""
+    src = structured(5, n)
+    pos, ref = device_lz4.block_anchors(src, "cpu")
+    jpos, jref = jdevice_lz4.block_anchors(src)
+    np.testing.assert_array_equal(pos, jpos)
+    np.testing.assert_array_equal(ref, jref)
+    assert len(pos) > 0 and pos.max() < n
+    assert pos.dtype == ref.dtype == np.int64
 
 
 # ---------------------------------------------------------------------------

@@ -560,6 +560,22 @@ assert not bad, bad
                    cwd=REPO, timeout=300)
 
 
+def test_block_store_loads_no_data_plane():
+    """Importing the compression store in a fresh interpreter loads no
+    module of ``longtail_tpu_torch.parallel``: the store layer takes the
+    device decision from ``utils/device.py``, not from the data plane."""
+    code = """
+import sys
+import longtail_tpu_torch.stores.compressblockstore
+bad = sorted(m for m in sys.modules
+             if m.startswith('longtail_tpu_torch.parallel'))
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=300)
+
+
 def test_no_jax_import_in_the_port():
     """No import statement of the port, of chip_smoke.py, of
     bench_torch.py, of __graft_entry_torch__.py or of

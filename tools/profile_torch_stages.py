@@ -76,10 +76,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from bench_torch import BLOCK_BYTES, device_info, structured_rows  # noqa: E402,E501
 from longtail_tpu_torch.ops import lz4  # noqa: E402
-from longtail_tpu_torch.parallel.pipeline import (  # noqa: E402
-    DevicePartIndexer,
-    resolve_device,
-)
+from longtail_tpu_torch.parallel.pipeline import DevicePartIndexer  # noqa: E402,E501
+from longtail_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 STEPS = ("tiny-launch floor", "perturbation", "stage 1 (scan + walk)",
          "hash (one launch)", "plan_hash alone (host)", "retire alone",
@@ -186,7 +184,7 @@ def main(argv=None) -> int:
     # one real batch's chunks
     entry = indexer.plan_hash(indexer.submit([None] * B, batch, lengths))
     starts, sizes = [], []
-    for b, sz in enumerate(entry[1]):
+    for b, sz in enumerate(entry.lane_sizes):
         sz = sz.astype(np.int64)
         st = np.zeros(len(sz), np.int64)
         np.cumsum(sz[:-1], out=st[1:])
